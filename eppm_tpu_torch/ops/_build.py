@@ -1,0 +1,129 @@
+"""Build and load the port's CUDA kernels.
+
+The sources in ``eppm_tpu_torch/csrc`` export plain C functions.  At first
+use they are compiled with ``nvcc -gencode arch=compute_90a,code=sm_90a
+-O3 --fmad=false`` into one shared library,
+``eppm_tpu_torch/_build/libeppm_kernels-<hash>.so`` (the hash covers the
+sources and the flags, so an edited source rebuilds), and loaded with
+``ctypes``.  ``--fmad=false`` keeps each multiply and add rounded on its
+own, as in the plain versions (``csrc/common.cuh``).  Nothing here runs at
+import time, and nothing falls back: a missing ``nvcc`` or a failed build
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Optional, Sequence
+
+__all__ = ["CudaKernel", "BUILD_DIR", "CSRC_DIR", "build_library",
+           "build_seconds", "library_path", "nvcc_path"]
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def nvcc_path() -> str:
+    """``nvcc`` on PATH, else under CUDA_HOME or /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"libeppm_kernels-{h.hexdigest()[:12]}.so"
+
+
+# The loaded library, and how long this process took to build it (None
+# when it was built before).
+_handle: Optional[ctypes.CDLL] = None
+_build_seconds: Optional[float] = None
+
+
+def build_library() -> ctypes.CDLL:
+    """Compile the kernels unless their library exists, then load it."""
+    global _handle, _build_seconds
+    if _handle is not None:
+        return _handle
+    out = library_path()
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        # build into a private name, then rename: concurrent builders never
+        # load a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+               *(str(s) for s in sorted(CSRC_DIR.glob("*.cu")))]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(
+                f"nvcc failed ({' '.join(cmd)}):\n{res.stdout}{res.stderr}"
+            )
+        os.replace(tmp, out)
+        _build_seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(out))
+    lib.eppm_error_string.argtypes = [ctypes.c_int]
+    lib.eppm_error_string.restype = ctypes.c_char_p
+    _handle = lib
+    return lib
+
+
+def build_seconds() -> Optional[float]:
+    """Seconds the build in this process took; None if none ran."""
+    return _build_seconds
+
+
+class CudaKernel:
+    """One entry point of the kernel library.
+
+    ``launch`` calls the C function, which launches the kernel on the given
+    stream and returns ``cudaGetLastError()``; a non-zero code raises.
+    ``launches`` counts successful launches and nothing else, so a run can
+    show that it went through the kernel."""
+
+    def __init__(self, symbol: str, argtypes: Sequence):
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.launches = 0
+        self._fn = None
+
+    def _entry(self):
+        if self._fn is None:
+            fn = getattr(build_library(), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def launch(self, *args) -> None:
+        rc = self._entry()(*args)
+        if rc != 0:
+            msg = build_library().eppm_error_string(rc).decode()
+            raise RuntimeError(f"{self.symbol} failed: CUDA error {rc} ({msg})")
+        self.launches += 1

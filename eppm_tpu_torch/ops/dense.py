@@ -1,0 +1,247 @@
+"""Dense warp-and-residual flow refinement (counterpart of
+``eppm_tpu/ops/dense.py``), and the plain PyTorch version of the
+residual-cost kernel (``ops/cuda_cost.py``).
+
+Refinement splits each pixel's target as t(p) = p + g(p) + c, with g the
+truncated integer flow and c a small search offset: frame 2 is warped
+once by g (one gather), and the cost of candidate c reads the warped
+frame at p + c + d for every tap d — a static shift.  The derivation and
+its accuracy argument are in the JAX package's module docstring.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import torch
+
+from ..config import FLT_MAX, UNKNOWN_FLOW_THRESH, CostConfig
+from ._util import exp_cephes, ftz, grid, pad_edge, popcount8, shift2d
+from .cost import cost_constants, tap_weight
+
+# Taps per partial sum of the cost (the JAX package's ``cost_tap_chunk``).
+TAP_CHUNK = 25
+
+__all__ = [
+    "center_out_offsets",
+    "median3",
+    "median3_flow",
+    "warp_pack",
+    "residual_costs",
+    "residual_costs_multiwarp",
+    "dense_refine_flow",
+]
+
+
+def center_out_offsets(radius: int, shape: str = "square") -> List[Tuple[int, int]]:
+    """(dy, dx) residual candidates ordered center-out: (0,0) first, then
+    by Chebyshev ring and squared distance.  Argmin ties keep the first
+    candidate, so the order decides tied pixels (quantized costs make ties
+    common); ``shape="plus"`` keeps the L1 ball only."""
+    cands = [
+        (m, n)
+        for m in range(-radius, radius + 1)
+        for n in range(-radius, radius + 1)
+    ]
+    if shape == "plus":
+        cands = [c for c in cands if abs(c[0]) + abs(c[1]) <= radius]
+    elif shape != "square":
+        raise ValueError(f"unknown candidate shape {shape!r}")
+    cands.sort(key=lambda c: (max(abs(c[0]), abs(c[1])),
+                              c[0] * c[0] + c[1] * c[1], c))
+    return cands
+
+
+# The 19-comparator 3x3 median network of eppm_tpu/ops/dense.py::median3.
+_MEDIAN9 = (
+    (0, 1), (3, 4), (6, 7), (1, 2), (4, 5), (7, 8), (0, 1), (3, 4),
+    (6, 7), (0, 3), (5, 8), (4, 7), (3, 6), (1, 4), (2, 5), (4, 7),
+    (4, 2), (6, 4), (4, 2),
+)
+
+
+def median3(x: torch.Tensor) -> torch.Tensor:
+    """3x3 median of a 2D field (any dtype), edge-replicated borders."""
+    vals = [shift2d(x, dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
+    for i, j in _MEDIAN9:
+        vals[i], vals[j] = (
+            torch.minimum(vals[i], vals[j]), torch.maximum(vals[i], vals[j])
+        )
+    return vals[4]
+
+
+def median3_flow(flow: torch.Tensor) -> torch.Tensor:
+    """Per-component 3x3 median of an (H, W, 2) flow field."""
+    return torch.stack([median3(flow[..., 0]), median3(flow[..., 1])], dim=-1)
+
+
+def warp_pack(
+    pack2: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor, gather_dtype=None
+) -> torch.Tensor:
+    """J(p) = pack2 at (clamp(y + gy(p)), clamp(x + gx(p))): one flat
+    gather of all 4 channels.  ``gather_dtype`` (bfloat16) rounds the
+    gathered values through that dtype (``EPPMConfig.dense_warp_bf16``)."""
+    h2, w2 = pack2.shape[0], pack2.shape[1]
+    h, w = gx.shape
+    ys, xs = grid(h, w, gx.device)
+    cy = (ys.clamp(0, h2 - 1) + gy).clamp(0, h2 - 1)
+    cx = (xs.clamp(0, w2 - 1) + gx).clamp(0, w2 - 1)
+    if gather_dtype is not None:
+        pack2 = pack2.to(gather_dtype)
+    flat = pack2.reshape(h2 * w2, pack2.shape[2])
+    out = flat[(cy * w2 + cx).long()]
+    return out.to(torch.float32)
+
+
+def _cost_from_stack(
+    pack1: torch.Tensor, frames: torch.Tensor, m: int, cfg: CostConfig,
+) -> torch.Tensor:
+    """Shared plain cost: ``frames`` is (K, H+2m, W+2m, 4) — candidate k's
+    frame-2 region, already offset by its candidate and edge-padded by
+    ``m`` >= every |tap| — against pack1 (H, W, 4) -> (K, H, W).
+
+    Taps accumulate in ``cfg.tap_offsets`` order, in partial sums of
+    ``TAP_CHUNK`` taps like the JAX oracle's scan; the weight is the
+    oracle's single ``exp(-(dr1^2 + dr2^2)/sigma_r^2) * G(d)``."""
+    h, w = pack1.shape[0], pack1.shape[1]
+    R = max(max(abs(i), abs(j)) for (i, j) in cfg.tap_offsets)
+    pad1 = pad_edge(pack1, R, R)
+    inv_lam_ad2, inv_lam_cen2, inv_sig_r2 = cost_constants(cfg)
+    center1 = pack1[..., :3]
+    center2 = frames[:, m : m + h, m : m + w, :3]
+    cost_sum = torch.zeros(
+        (frames.shape[0], h, w), dtype=torch.float32, device=pack1.device
+    )
+    weight_sum = torch.zeros_like(cost_sum)
+    taps = list(cfg.tap_offsets)
+    for c0 in range(0, len(taps), TAP_CHUNK):
+        part_c = torch.zeros_like(cost_sum)
+        part_w = torch.zeros_like(cost_sum)
+        for (dy, dx) in taps[c0 : c0 + TAP_CHUNK]:
+            gw = tap_weight(dy, dx, cfg.sigma_spatial)
+            p1 = pad1[R + dy : R + dy + h, R + dx : R + dx + w]
+            p2 = frames[:, m + dy : m + dy + h, m + dx : m + dx + w]
+            d = (p1[..., :3] - p2[..., :3]).abs()
+            ad = torch.maximum(torch.maximum(d[..., 0], d[..., 1]), d[..., 2])
+            c_ad = 1.0 - exp_cephes(-(ad * ad) * inv_lam_ad2)
+            x = p1[..., 3].to(torch.int32) ^ p2[..., 3].to(torch.int32)
+            ham = popcount8(x).to(torch.float32)
+            c_cen = 1.0 - exp_cephes(-(ham * ham) * inv_lam_cen2)
+            d1 = (center1 - p1[..., :3]).abs()
+            dr1 = torch.maximum(torch.maximum(d1[..., 0], d1[..., 1]),
+                                d1[..., 2])
+            d2 = (center2 - p2[..., :3]).abs()
+            dr2 = torch.maximum(torch.maximum(d2[..., 0], d2[..., 1]),
+                                d2[..., 2])
+            wgt = ftz(exp_cephes(-(dr1 * dr1 + dr2 * dr2) * inv_sig_r2) * gw)
+            part_c = part_c + wgt * (c_ad + c_cen)
+            part_w = part_w + wgt
+        cost_sum = cost_sum + part_c
+        weight_sum = weight_sum + part_w
+    cost = cost_sum / weight_sum.clamp_min(1e-30)
+    # 2^-17 grid: argmin ties resolve alike across implementations
+    return torch.round(cost * 131072.0) * (1.0 / 131072.0)
+
+
+def _tap_reach(cfg: CostConfig) -> int:
+    return max(max(abs(i), abs(j)) for (i, j) in cfg.tap_offsets)
+
+
+def residual_costs(
+    pack1: torch.Tensor,
+    warped2: torch.Tensor,
+    cand_offsets: Sequence[Tuple[int, int]],
+    cfg: CostConfig,
+) -> torch.Tensor:
+    """Fronto-parallel cost of each residual candidate, densely: candidate
+    c at pixel p compares pack1(p+d) with warped2(clamp(p+c+d)) over the
+    tap grid -> (K, H, W) float32 on the 2^-17 grid.
+
+    The plain version of kernel A (``ops/cuda_cost.py``) and the port of
+    ``eppm_tpu/ops/dense.py::residual_costs(use_planes=False)``."""
+    h, w = pack1.shape[0], pack1.shape[1]
+    m = _tap_reach(cfg)
+    cmax = max(max(abs(a), abs(b)) for (a, b) in cand_offsets)
+    P = cmax + m
+    pad2 = pad_edge(warped2, P, P)
+    frames = torch.stack([
+        pad2[P + cy - m : P + cy + m + h, P + cx - m : P + cx + m + w]
+        for (cy, cx) in cand_offsets
+    ])
+    return _cost_from_stack(pack1, frames, m, cfg)
+
+
+def residual_costs_multiwarp(
+    pack1: torch.Tensor, warped_stack: torch.Tensor, cfg: CostConfig
+) -> torch.Tensor:
+    """Cost at candidate (0, 0) of K separately warped frames
+    (K, H, W, 4) -> (K, H, W): the plain version of kernel A's multiwarp
+    mode (``eppm_tpu/ops/pallas_cost.py::residual_costs_multiwarp_pallas``)."""
+    m = _tap_reach(cfg)
+    frames = torch.stack([pad_edge(wk, m, m) for wk in warped_stack])
+    return _cost_from_stack(pack1, frames, m, cfg)
+
+
+def dense_refine_flow(
+    flow: torch.Tensor,
+    pack1: torch.Tensor,
+    pack2: torch.Tensor,
+    cfg: CostConfig,
+    search_radius: int = 1,
+    cand_shape: str = "square",
+    gather_dtype=None,
+) -> torch.Tensor:
+    """Search the candidates around trunc(flow) with the fronto-parallel
+    cost on the once-warped frame 2.  Unknown flow resets to 0, candidates
+    whose true target leaves frame 2 are skipped, ties keep the first
+    candidate (``eppm_tpu/ops/dense.py::dense_refine_flow`` without the
+    off-path plane tables and subpixel fit)."""
+    from .cuda_cost import residual_costs_auto
+
+    h, w = flow.shape[:2]
+    h2, w2 = pack2.shape[0], pack2.shape[1]
+    ys, xs = grid(h, w, flow.device)
+    u, v = flow[..., 0], flow[..., 1]
+    unknown = (u > UNKNOWN_FLOW_THRESH) | (v > UNKNOWN_FLOW_THRESH)
+    gx = torch.where(unknown, 0.0, u).trunc().to(torch.int32)
+    gy = torch.where(unknown, 0.0, v).trunc().to(torch.int32)
+    warped2 = warp_pack(pack2, gx, gy, gather_dtype)
+
+    cand_offsets = center_out_offsets(search_radius, cand_shape)
+    costs = residual_costs_auto(pack1, warped2, cand_offsets, cfg)
+    best_dy, best_dx, _ = argmin_candidates(
+        costs, cand_offsets, ys + gy, xs + gx, h2, w2, init=999999.0
+    )
+    out = torch.stack(
+        [(gx + best_dx).to(torch.float32), (gy + best_dy).to(torch.float32)],
+        dim=-1,
+    )
+    return torch.where(unknown[..., None], 0.0, out)
+
+
+def argmin_candidates(
+    costs: torch.Tensor,
+    cand_offsets: Sequence[Tuple[int, int]],
+    ty0: torch.Tensor,
+    tx0: torch.Tensor,
+    h2: int,
+    w2: int,
+    init: float = FLT_MAX,
+):
+    """First strict minimum over candidates whose target (ty0+m, tx0+n)
+    lies in frame 2 -> (best_dy, best_dx, best_cost); (0, 0) and ``init``
+    where no candidate beats ``init``."""
+    best_cost = torch.full(ty0.shape, init, dtype=torch.float32,
+                           device=costs.device)
+    best_dy = torch.zeros(ty0.shape, dtype=torch.int32, device=costs.device)
+    best_dx = torch.zeros_like(best_dy)
+    for k, (m, n) in enumerate(cand_offsets):
+        ty = ty0 + m
+        tx = tx0 + n
+        inb = (tx >= 0) & (tx < w2) & (ty >= 0) & (ty < h2)
+        ck = torch.where(inb, costs[k], FLT_MAX)
+        better = ck < best_cost
+        best_cost = torch.where(better, ck, best_cost)
+        best_dy = torch.where(better, m, best_dy)
+        best_dx = torch.where(better, n, best_dx)
+    return best_dy, best_dx, best_cost

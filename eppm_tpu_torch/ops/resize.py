@@ -1,0 +1,110 @@
+"""Image resampling: Gaussian filter, bilinear resize, Gaussian pyramid
+(counterpart of ``eppm_tpu/ops/resize.py``, same index arithmetic and
+the same order of float operations).
+
+Spec (reference ``basic/bao_basic_cuda.cuh``):
+  - Gaussian filter (:397-481): edge-clamped taps, separable, the weights
+    normalized over the full window.
+  - Bilinear resize (:484-615): source coordinate fx = (x+1)/ratio - 1,
+    taps at clamp(floor(fx)) and clamp(floor(fx)+1), weight
+    clip(fx - floor(fx), 0, 1).  ``torch.nn.functional.interpolate`` uses
+    another coordinate rule, so the indices are built here.
+  - Gaussian pyramid (:619-664): level i filters level 0 with sigma
+    i*baseSigma (radius 3 sigma), then resizes by ratio**i.
+
+All functions take float tensors of shape (H, W) or (H, W, C).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ._util import fma32, pad_edge
+
+__all__ = ["gaussian_filter", "bilinear_resize", "gaussian_pyramid"]
+
+
+def gaussian_filter(img: torch.Tensor, sigma: float, radius: int) -> torch.Tensor:
+    """Gaussian blur with edge-replicated taps (bao_basic_cuda.cuh:397-417)."""
+    if radius <= 0:
+        return img
+    k = np.arange(-radius, radius + 1, dtype=np.float64)
+    w = np.exp(-(k * k) / (2.0 * sigma * sigma))
+    w = (w / w.sum()).astype(np.float32)
+    for axis in (0, 1):
+        padded = pad_edge(img, radius if axis == 0 else 0,
+                          radius if axis == 1 else 0)
+        taps = [padded.narrow(axis, i, img.shape[axis]) for i in range(len(w))]
+        # the multiply-adds fuse as XLA's CPU backend fuses them:
+        # fma(t0, w0, t1*w1), then fma(t_i, w_i, acc)
+        acc = fma32(taps[0], float(w[0]), taps[1] * float(w[1]))
+        for t, wi in zip(taps[2:], w[2:]):
+            acc = fma32(t, float(wi), acc)
+        img = acc
+    return img
+
+
+def _resize_axis_indices(
+    out_size: int, in_size: int, ratio: float
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Static (i0, i1, frac) for one axis, reference semantics: floor
+    (equal to the reference's truncation wherever both are defined, see
+    ``eppm_tpu/ops/resize.py::_resize_axis_indices``), clip, (x+1)/r-1."""
+    x = np.arange(out_size, dtype=np.float64)
+    fx = (x + 1.0) / ratio - 1.0
+    xx = np.floor(fx)
+    dx = np.clip(fx - xx, 0.0, 1.0)
+    i0 = np.clip(xx.astype(np.int64), 0, in_size - 1)
+    i1 = np.clip(xx.astype(np.int64) + 1, 0, in_size - 1)
+    return i0, i1, dx.astype(np.float32)
+
+
+def bilinear_resize(
+    img: torch.Tensor, out_h: int, out_w: int, ratio: float
+) -> torch.Tensor:
+    """Bilinear resize with the reference's coordinate mapping; ``ratio``
+    is out/in scale (0.5**i for pyramid levels, 2.0 for flow upsampling)."""
+    h, w = img.shape[0], img.shape[1]
+    dev = img.device
+    y0, y1, fy = _resize_axis_indices(out_h, h, ratio)
+    x0, x1, fx = _resize_axis_indices(out_w, w, ratio)
+    tail = (1,) * (img.dim() - 2)
+    fy = torch.from_numpy(fy).to(dev).reshape((-1, 1) + tail)
+    fx = torch.from_numpy(fx).to(dev).reshape((1, -1) + tail)
+    x0 = torch.from_numpy(x0).to(dev)
+    x1 = torch.from_numpy(x1).to(dev)
+    r0 = img.index_select(0, torch.from_numpy(y0).to(dev))
+    r1 = img.index_select(0, torch.from_numpy(y1).to(dev))
+
+    def row(r):
+        return r.index_select(1, x0) * (1.0 - fx) + r.index_select(1, x1) * fx
+
+    return row(r0) * (1.0 - fy) + row(r1) * fy
+
+
+def gaussian_pyramid(
+    img: torch.Tensor, dims: Sequence[Tuple[int, int]], ratio: float = 0.5
+) -> List[torch.Tensor]:
+    """Gaussian pyramid with the reference sigma schedule
+    (bao_cuda_construct_gauss_pyramid, bao_basic_cuda.cuh:619-641)."""
+    levels = [img]
+    base_sigma = 1.0 / ratio - 1.0
+    n = int(math.log(0.25) / math.log(ratio))
+    n_sigma = base_sigma * n
+    w0 = img.shape[1]
+    for i in range(1, len(dims)):
+        oh, ow = dims[i]
+        if i <= n:
+            sigma = base_sigma * i
+            smoothed = gaussian_filter(img, sigma, int(sigma * 3))
+            levels.append(bilinear_resize(smoothed, oh, ow, ratio**i))
+        else:
+            src = levels[i - n]
+            smoothed = gaussian_filter(src, n_sigma, int(n_sigma * 3))
+            eff_ratio = (ratio**i) * w0 / src.shape[1]
+            levels.append(bilinear_resize(smoothed, oh, ow, eff_ratio))
+    return levels

@@ -1,0 +1,189 @@
+"""The EPPM optical-flow pipeline on PyTorch (counterpart of
+``eppm_tpu/pipeline.py``), default branches only.
+
+Stage order (reference ``compute_flow``,
+bao_flow_patchmatch_multiscale_cuda.cpp:217-315):
+
+  prepare: Gaussian pre-smooth -> Gaussian pyramid (auto-depth) -> census
+    transform and pack per level
+  coarsest level: bidirectional dense matching -> left-right check ->
+    outlier removal -> occlusion reconstruction (fill-first) -> flow
+  each finer level: bilinear upsample x2 -> dense refine pass 1 (kernel A)
+    -> 3x3 median -> dense refine pass 2 (kernel A) -> flow smoothing
+    (kernel B)
+  level 0: one more flow smoothing
+
+PyTorch runs eagerly on the device of the input tensors: CUDA tensors
+launch the hand-written kernels, CPU tensors take their plain versions.
+The JAX package's staged programs (``STAGED_PIPELINE_THRESHOLD``) work
+around a TPU fault and have no counterpart here.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from .config import DEFAULT_CONFIG, EPPMConfig
+from .ops._util import inv32
+from .ops.census import census_transform
+from .ops.cost import pack_frame
+from .ops.cuda_smooth import flow_smoothing_auto
+from .ops.dense import dense_refine_flow, median3_flow
+from .ops.match import match_coarse_bidi
+from .ops.occlusion import coarse_occlusion_reconstruct
+from .ops.refine import lr_check, nnf_to_flow, outlier_removal
+from .ops.resize import bilinear_resize, gaussian_filter, gaussian_pyramid
+
+__all__ = ["prepare_pyramids", "compute_flow", "EPPMFlow", "check_supported"]
+
+
+def _normalize(img: torch.Tensor) -> torch.Tensor:
+    """uint8 [0,255] or float [0,1] -> float32 [0,1]."""
+    if img.dtype == torch.uint8:
+        return img.to(torch.float32) * inv32(255.0)
+    return img.to(torch.float32)
+
+
+def prepare_pyramids(
+    img: torch.Tensor, cfg: EPPMConfig
+) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Pre-smooth, build the Gaussian pyramid, census-transform and pack
+    each level (refine_kernel.cu:1059-1071) -> (image levels, packs)."""
+    img = _normalize(img)
+    h, w = img.shape[0], img.shape[1]
+    dims = cfg.pyramid.level_dims(h, w)
+    smoothed = gaussian_filter(
+        img, cfg.pyramid.presmooth_sigma, cfg.pyramid.presmooth_radius
+    )
+    levels = gaussian_pyramid(smoothed, dims, cfg.pyramid.ratio)
+    packs = [pack_frame(lv, census_transform(lv)) for lv in levels]
+    return levels, packs
+
+
+# (setting, ROADMAP.md item that ports it) of every branch not ported yet
+_NOT_PORTED = (
+    (lambda c: c.match_engine != "dense", "match_engine",
+     "Queue 1 item 14 (the PatchMatch engine)"),
+    (lambda c: c.refine_impl != "dense", "refine_impl",
+     "Queue 1 item 13 (refine_impl='gather')"),
+    (lambda c: not c.refine.wmf_fill_first, "refine.wmf_fill_first",
+     "Queue 1 item 13 (legacy WMF order)"),
+    (lambda c: c.dense_pass1_planes or c.dense_pass2_planes,
+     "dense_pass1_planes/dense_pass2_planes",
+     "Queue 2 item 5 (plane-hypothesis cost kernel)"),
+    (lambda c: c.subpixel_refine or c.dense_subpixel_fit,
+     "subpixel_refine/dense_subpixel_fit", "Queue 1 item 13 (subpixel)"),
+)
+
+
+def check_supported(cfg: EPPMConfig) -> None:
+    """Raise NotImplementedError for a config that takes a branch the
+    port does not have yet, naming the ROADMAP item."""
+    for off_path, name, item in _NOT_PORTED:
+        if off_path(cfg):
+            raise NotImplementedError(
+                f"{name} other than the default is not ported yet: "
+                f"ROADMAP.md, {item}"
+            )
+
+
+def compute_flow(
+    img1: torch.Tensor,
+    img2: torch.Tensor,
+    cfg: EPPMConfig = DEFAULT_CONFIG,
+    fine_level_wmf: bool = False,
+    init_flow: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Dense flow frame1 -> frame2 for an (H, W, 3) pair (uint8 or float
+    in [0, 1]) -> (H, W, 2) float32 on the frames' device.  The default
+    dense engine makes no random draws, so no generator is taken."""
+    check_supported(cfg)
+    if fine_level_wmf:
+        raise NotImplementedError(
+            "fine_level_wmf is not ported yet: ROADMAP.md, Queue 1 item 13"
+        )
+    if init_flow is not None:
+        raise NotImplementedError(
+            "init_flow (temporal warm start) is not ported yet: ROADMAP.md, "
+            "Queue 1 item 13"
+        )
+    if img1.device != img2.device:
+        raise ValueError(f"frames on {img1.device} and {img2.device}")
+    levels1, packs1 = prepare_pyramids(img1, cfg)
+    levels2, packs2 = prepare_pyramids(img2, cfg)
+    top = len(packs1) - 1
+
+    (tx1, ty1, c1), (tx2, ty2, c2) = match_coarse_bidi(
+        levels1[top], levels2[top], cfg.cost, cfg.match,
+        packs1[top], packs2[top],
+    )
+    otx, oty = tx1, ty1  # pre-LR matches: arbitration candidates
+    tx1, ty1, c1, tx2, ty2, c2 = lr_check(
+        tx1, ty1, c1, tx2, ty2, c2, cfg.lr_thresh
+    )
+    tx1, ty1, c1 = outlier_removal(tx1, ty1, c1, cfg.refine)
+    tx1, ty1 = coarse_occlusion_reconstruct(
+        tx1, ty1, levels1[top], cfg.refine,
+        packs=(packs1[top], packs2[top]), cost_cfg=cfg.cost,
+        orig=(otx, oty),
+    )
+    flow = nnf_to_flow(tx1, ty1)
+
+    ratio_up = 1.0 / cfg.pyramid.ratio
+    for lvl in range(top - 1, -1, -1):
+        oh, ow = packs1[lvl].shape[0], packs1[lvl].shape[1]
+        flow = bilinear_resize(flow, oh, ow, ratio_up) * ratio_up
+        flow = dense_refine_flow(
+            flow, packs1[lvl], packs2[lvl], cfg.cost,
+            cfg.dense_search_radius, cfg.dense_cand_shape, cfg.warp_dtype,
+        )
+        for _ in range(cfg.dense_refine_passes - 1):
+            flow = dense_refine_flow(
+                median3_flow(flow), packs1[lvl], packs2[lvl], cfg.pass2_cost,
+                cfg.dense_search_radius, cfg.pass2_cand_shape, cfg.warp_dtype,
+            )
+        flow = flow_smoothing_auto(flow, levels1[lvl], cfg.refine)
+    return flow_smoothing_auto(flow, levels1[0], cfg.refine)
+
+
+class EPPMFlow(nn.Module):
+    """Object API mirroring the reference orchestrator
+    (bao_flow_patchmatch_multiscale_cuda.h:33-44): ``init(h, w)``,
+    ``set_data(img1, img2)``, ``compute_flow()``; ``forward(img1, img2)``
+    runs the pipeline directly.  Its state is the config (the system has
+    no learned weights) and the frames of ``set_data``."""
+
+    def __init__(self, cfg: EPPMConfig = DEFAULT_CONFIG):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        self._shape: Optional[Tuple[int, int]] = None
+        self._img1: Optional[torch.Tensor] = None
+        self._img2: Optional[torch.Tensor] = None
+
+    def init(self, h: int, w: int) -> "EPPMFlow":
+        self._shape = (h, w)
+        return self
+
+    def set_data(self, img1: torch.Tensor, img2: torch.Tensor) -> "EPPMFlow":
+        if self._shape is None:
+            self._shape = (img1.shape[0], img1.shape[1])
+        if (tuple(img1.shape[:2]) != self._shape
+                or tuple(img2.shape[:2]) != self._shape):
+            raise ValueError(
+                f"frame shape {tuple(img1.shape[:2])}/{tuple(img2.shape[:2])}"
+                f" != init shape {self._shape}"
+            )
+        self._img1, self._img2 = img1, img2
+        return self
+
+    def compute_flow(self) -> torch.Tensor:
+        if self._img1 is None:
+            raise RuntimeError("set_data() must be called before compute_flow()")
+        return compute_flow(self._img1, self._img2, self.cfg)
+
+    def forward(self, img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+        return compute_flow(img1, img2, self.cfg)

@@ -1,0 +1,253 @@
+"""The port's CUDA kernels (A: residual cost, B: flow smoothing, C:
+weighted median) and their dispatch.
+
+Tests marked ``gpu`` build the kernels with nvcc and run them against
+their plain PyTorch versions on the card (run them on a GPU host, which
+has no jax, with ``python -m pytest --noconftest
+tests/test_torch_kernels.py``); without a CUDA device they skip.  The others run anywhere: the dispatchers take the plain
+version only for CPU tensors, a kernel wrapper given anything else
+raises, and the main path hands each kernel arguments it accepts."""
+
+import collections
+
+import numpy as np
+import pytest
+import torch
+
+from eppm_tpu_torch import pipeline
+from eppm_tpu_torch.config import DEFAULT_CONFIG as CFG
+from eppm_tpu_torch.config import INVALID_LOCATION, UNKNOWN_FLOW
+from eppm_tpu_torch.ops import _build, cuda_cost, cuda_smooth, cuda_wmf
+from eppm_tpu_torch.ops import match, occlusion
+from eppm_tpu_torch.ops.census import census_transform
+from eppm_tpu_torch.ops.cost import pack_frame
+from eppm_tpu_torch.ops.dense import center_out_offsets
+from eppm_tpu_torch.ops.refine import fill_holes
+
+# The suite runs several test processes per host: one torch thread each
+# keeps them from oversubscribing the cores.
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels build and run only on "
+                    "the GPU host (chip_smoke.py runs the same checks)")
+    return torch.device("cuda", 0)
+
+
+def _packs(h, w, seed=0, device="cpu"):
+    rng = np.random.default_rng(seed)
+    img1 = rng.random((h, w, 3)).astype(np.float32)
+    img2 = np.roll(img1, (1, -2), (0, 1)) * np.float32(0.9)
+    out = []
+    for img in (img1, img2):
+        t = torch.from_numpy(img).to(device)
+        out.append((t, pack_frame(t, census_transform(t))))
+    return out
+
+
+def _wmf_inputs(h, w, seed=0, device="cpu"):
+    rng = np.random.default_rng(seed)
+    ys, xs = np.mgrid[0:h, 0:w]
+    tx = (xs + 2 + rng.integers(-1, 2, (h, w))).astype(np.int32)
+    ty = (ys - 1 + rng.integers(-1, 2, (h, w))).astype(np.int32)
+    holes = rng.random((h, w)) < 0.2
+    holes[h // 3 : h // 2, w // 3 : w // 2] = True
+    tx[holes] = INVALID_LOCATION
+    ty[holes] = INVALID_LOCATION
+    img = rng.random((h, w, 3)).astype(np.float32)
+    return (torch.from_numpy(tx).to(device), torch.from_numpy(ty).to(device),
+            torch.from_numpy(img).to(device))
+
+
+def _counts():
+    return (cuda_cost.SINGLE.launches, cuda_cost.MULTIWARP.launches,
+            cuda_smooth.KERNEL.launches, cuda_wmf.KERNEL.launches)
+
+
+# --- anywhere -------------------------------------------------------------
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    (img, p1), (_, p2) = _packs(8, 12)
+    flow = torch.zeros((8, 12, 2))
+    tx, ty, wimg = _wmf_inputs(8, 12)
+    calls = [
+        lambda: cuda_cost.residual_costs_cuda(p1, p2, [(0, 0)], CFG.cost),
+        lambda: cuda_cost.residual_costs_multiwarp_cuda(p1, p2[None],
+                                                        CFG.cost),
+        lambda: cuda_smooth.flow_smoothing_cuda(flow, img, CFG.refine),
+        lambda: cuda_wmf.weighted_median_filter_cuda(tx, ty, wimg,
+                                                     CFG.refine),
+    ]
+    before = _counts()
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert _counts() == before
+
+
+def test_dispatchers_take_plain_versions_on_cpu_only():
+    (img, p1), (_, p2) = _packs(8, 12)
+    flow = torch.zeros((8, 12, 2))
+    tx, ty, wimg = _wmf_inputs(8, 12)
+    before = _counts()
+    cuda_cost.residual_costs_auto(p1, p2, [(0, 0)], CFG.cost)
+    cuda_cost.residual_costs_multiwarp_auto(p1, p2[None], CFG.cost)
+    cuda_smooth.flow_smoothing_auto(flow, img, CFG.refine)
+    cuda_wmf.weighted_median_filter_auto(tx, ty, wimg, CFG.refine)
+    assert _counts() == before
+    meta = torch.empty((8, 12, 4), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_cost.residual_costs_auto(meta, meta, [(0, 0)], CFG.cost)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_smooth.flow_smoothing_auto(meta[..., :2], meta[..., :3],
+                                        CFG.refine)
+
+
+def test_argument_checks_reject_what_the_kernels_do_not_take():
+    (img, p1), (_, p2) = _packs(8, 12)
+    cands = [(0, 0, 0)]
+    cuda_cost.check_cost_args(p1, p2, 1, cands, CFG.cost)
+    with pytest.raises(ValueError, match="float32"):
+        cuda_cost.check_cost_args(p1.double(), p2, 1, cands, CFG.cost)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_cost.check_cost_args(p1, p2.transpose(0, 1).contiguous()
+                                  .transpose(0, 1), 1, cands, CFG.cost)
+    with pytest.raises(ValueError, match="boundary"):
+        flat = torch.zeros(8 * 12 * 4 + 1)
+        cuda_cost.check_cost_args(p1, flat[1:].view(8, 12, 4), 1, cands,
+                                  CFG.cost)
+    with pytest.raises(ValueError, match="candidates"):
+        cuda_cost.check_cost_args(p1, p2, 1, [(0, 0, 0)] * 129, CFG.cost)
+    with pytest.raises(ValueError, match="shape"):
+        cuda_smooth.check_smooth_args(torch.zeros((8, 12, 3)), img,
+                                      CFG.refine)
+    tx, ty, wimg = _wmf_inputs(8, 12)
+    with pytest.raises(ValueError, match="int32"):
+        cuda_wmf.check_wmf_args(tx.long(), ty, wimg, CFG.refine)
+
+
+def test_main_path_hands_kernels_arguments_they_take(monkeypatch):
+    """Run the slice on the CPU with each dispatcher wrapped in its
+    kernel's argument check: every call the kernels would get passes."""
+    seen = collections.Counter()
+
+    def wrap(mod, name, check):
+        orig = getattr(mod, name)
+
+        def checked(*args, **kwargs):
+            check(*args, **kwargs)
+            seen[name] += 1
+            return orig(*args, **kwargs)
+
+        monkeypatch.setattr(mod, name, checked)
+
+    def single(p1, w2, cands, cfg):
+        cuda_cost.check_cost_args(p1, w2, 1, [(a, b, 0) for a, b in cands],
+                                  cfg)
+
+    def multi(p1, stack, cfg):
+        k = stack.shape[0]
+        cuda_cost.check_cost_args(p1, stack, k, [(0, 0, i) for i in range(k)],
+                                  cfg)
+
+    def wmf(tx, ty, img, cfg, num_iter=1, only_occlusion=False,
+            polish_init=None, dilation=1):
+        cuda_wmf.check_wmf_args(tx, ty, img, cfg, polish_init, dilation)
+
+    for mod in (cuda_cost, match):
+        wrap(mod, "residual_costs_auto", single)
+    wrap(match, "residual_costs_multiwarp_auto", multi)
+    wrap(pipeline, "flow_smoothing_auto", cuda_smooth.check_smooth_args)
+    wrap(occlusion, "weighted_median_filter_auto", wmf)
+    rng = np.random.default_rng(0)
+    img1 = torch.from_numpy((rng.random((48, 64, 3)) * 255).astype(np.uint8))
+    img2 = torch.roll(img1, (1, -2), (0, 1))
+    flow = pipeline.compute_flow(img1, img2)
+    assert tuple(flow.shape) == (48, 64, 2)
+    assert set(seen) == {"residual_costs_auto", "residual_costs_multiwarp_auto",
+                         "flow_smoothing_auto", "weighted_median_filter_auto"}
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.nvcc_path()
+    assert _build.library_path().name.startswith("libeppm_kernels-")
+    assert "--fmad=false" in _build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+# --- on the card ----------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("radius,cfg_name", [(0, "cost"), (1, "cost"),
+                                             (1, "pass2"), (3, "cost")])
+def test_kernel_a_matches_plain(cuda, radius, cfg_name):
+    cfg = {"cost": CFG.cost, "pass2": CFG.pass2_cost}[cfg_name]
+    (_, p1), (_, p2) = _packs(70, 90, device=cuda)
+    cands = center_out_offsets(radius)
+    n = cuda_cost.SINGLE.launches
+    got = cuda_cost.residual_costs_auto(p1, p2, cands, cfg)
+    assert cuda_cost.SINGLE.launches == n + 1
+    want = cuda_cost.residual_costs(p1, p2, cands, cfg)
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_kernel_a_multiwarp_matches_plain(cuda):
+    (_, p1), (_, p2) = _packs(50, 70, device=cuda)
+    stack = torch.stack([torch.roll(p2, s, 1) for s in range(5)])
+    n = cuda_cost.MULTIWARP.launches
+    got = cuda_cost.residual_costs_multiwarp_auto(p1, stack, CFG.cost)
+    assert cuda_cost.MULTIWARP.launches == n + 1
+    want = cuda_cost.residual_costs_multiwarp(p1, stack, CFG.cost)
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_kernel_b_matches_plain(cuda):
+    (img, _), _ = _packs(60, 80, device=cuda)
+    rng = np.random.default_rng(1)
+    flow = torch.from_numpy(rng.normal(0, 3, (60, 80, 2)).astype(
+        np.float32)).to(cuda)
+    flow[10:20, 5:30] = UNKNOWN_FLOW
+    n = cuda_smooth.KERNEL.launches
+    got = cuda_smooth.flow_smoothing_auto(flow, img, CFG.refine)
+    assert cuda_smooth.KERNEL.launches == n + 1
+    want = cuda_smooth.flow_smoothing(flow, img, CFG.refine)
+    assert float((got - want).abs().max()) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["polish", "jacobi"])
+@pytest.mark.parametrize("dilation", [1, 2])
+def test_kernel_c_matches_plain(cuda, mode, dilation):
+    tx, ty, img = _wmf_inputs(40, 56, device=cuda)
+    kw = dict(num_iter=3, only_occlusion=True, dilation=dilation)
+    if mode == "polish":
+        kw["polish_init"] = fill_holes(tx, ty, img)
+    n = cuda_wmf.KERNEL.launches
+    got = cuda_wmf.weighted_median_filter_auto(tx, ty, img, CFG.refine, **kw)
+    assert cuda_wmf.KERNEL.launches == n + 3
+    want = cuda_wmf.weighted_median_filter(tx, ty, img, CFG.refine, **kw)
+    differ = (got[0] != want[0]) | (got[1] != want[1])
+    assert float(differ.float().mean()) < 0.005
+
+
+@pytest.mark.gpu
+def test_slice_on_the_card_matches_the_cpu(cuda):
+    rng = np.random.default_rng(2)
+    img1 = torch.from_numpy((rng.random((96, 128, 3)) * 255).astype(np.uint8))
+    img2 = torch.roll(img1, (2, -3), (0, 1))
+    before = _counts()
+    gpu = pipeline.compute_flow(img1.to(cuda), img2.to(cuda)).cpu().numpy()
+    assert all(a > b for a, b in zip(_counts(), before))
+    cpu = pipeline.compute_flow(img1, img2).numpy()
+    d = np.abs(gpu - cpu).max(axis=-1)
+    assert (d < 1e-3).mean() >= 0.98 and d.mean() < 0.05
