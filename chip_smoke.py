@@ -7,20 +7,34 @@ Phases, each of which must pass (any failure exits non-zero and the
 final line is not printed):
 
 1. versions: torch, CUDA, nvcc, and the card's name and power limit;
-2. build: the three CUDA kernels, from ``eppm_tpu_torch/csrc``;
+2. build: the CUDA kernels, from ``eppm_tpu_torch/csrc`` (one nvcc per
+   source, all started together);
 3. kernels against their plain PyTorch versions, on the card, at the
-   shapes the main path gives them (tolerances of ``tools/tpu_check.py``:
-   cost max |diff| <= 1e-4, smoothing <= 1e-3, WMF < 0.5% of pixels
-   choosing another target), with each one's time beside the plain
-   version's (CUDA events, after a warm-up);
-4. end to end: ``EPPMFlow`` under ``DEFAULT_CONFIG`` at 640x480 and
-   1920x1080 on synthetic pairs with a known integer translation (a small
-   and a large one at each size): finite flow, warp error below 0.6x the
-   zero-flow baseline, interior EPE against the known shift, and every
-   kernel's launch count over these runs > 0;
+   shapes the main paths give them (tolerances of ``tools/tpu_check.py``:
+   cost max |diff| <= 1e-4 in both modes of kernel A, smoothing <= 1e-3,
+   WMF < 0.5% of pixels choosing another target, the global argmax
+   identical indices), with each one's time beside the plain version's
+   (CUDA events, after a warm-up);
+4. end to end, one path after another, each with every launch count set
+   to 0 just before it and read just after, and each of its kernels
+   launched at least once:
+   - ``EPPMFlow`` under ``DEFAULT_CONFIG``, and with the reference's
+     plane-hypothesis re-search in both dense passes
+     (``dense_pass1_planes``, ``dense_pass2_planes``), at 640x480 and
+     1920x1080 on synthetic pairs with a known integer translation (a
+     small and a large one at each size);
+   - ``EPPMFlow`` with the gathered plane-fitting refine
+     (``refine_impl="gather"``) at 640x480;
+   each with finite flow, warp error below 0.6x the zero-flow baseline
+   and the interior EPE against the known shift;
+   - ``match_coarse`` (single direction) on the coarse level of a
+     3840x2160 pair under ``pyramid.auto_depth_dim=0`` (540x960, global
+     proposals on a stride-2 grid of 129,600 targets): the known shift
+     recovered in the interior;
 5. agreement: the port on the card against the port on the CPU (plain
-   versions) at 192x256, at least 98% of pixels within 1e-3 and mean
-   |diff| < 0.05.
+   versions) at 192x256, under ``DEFAULT_CONFIG`` and with both plane
+   flags, at least 98% of pixels within 1e-3 and mean |diff| < 0.05;
+   ``match_coarse`` at 60x80 returns the same targets on both.
 
 The line before the last is one JSON object with a row per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The synthetic pairs are
@@ -29,6 +43,7 @@ smooth textures made from a seed with numpy; no frame file is read.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -72,9 +87,11 @@ def shifted_pair(h: int, w: int, dx: int, dy: int, seed: int):
     return np.ascontiguousarray(f1), np.ascontiguousarray(f2)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() in ms over ``reps`` runs after a warm-up."""
-    fn()
+def cuda_ms(fn, reps: int, warm: bool = True) -> float:
+    """Mean device time of fn() in ms over ``reps`` runs, after a warm-up
+    run unless ``warm`` is False (the caller has just run fn's work)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -139,10 +156,11 @@ def phase_kernels(dev) -> dict:
     log("== phase 3: kernels against their plain versions")
     from eppm_tpu_torch.config import DEFAULT_CONFIG as cfg
     from eppm_tpu_torch.config import INVALID_LOCATION, UNKNOWN_FLOW
-    from eppm_tpu_torch.ops import cuda_cost, cuda_smooth, cuda_wmf
+    from eppm_tpu_torch.ops import cuda_cost, cuda_match, cuda_smooth
+    from eppm_tpu_torch.ops import cuda_wmf
     from eppm_tpu_torch.ops._util import grid
     from eppm_tpu_torch.ops.dense import center_out_offsets, warp_pack
-    from eppm_tpu_torch.ops.match import _make_mini_cost
+    from eppm_tpu_torch.ops.match import _make_mini_cost, patch_descriptors
     from eppm_tpu_torch.ops.refine import fill_holes
 
     rows = {}
@@ -153,32 +171,64 @@ def phase_kernels(dev) -> dict:
         row["ms"], row["plain_ms"] = ms, plain_ms
 
     mini = _make_mini_cost(cfg.cost, cfg.match)
-    cases = [  # (h, w, candidates, cost config) of the main path
-        (60, 80, center_out_offsets(3), mini),
-        (120, 160, center_out_offsets(3), cfg.cost),
-        (480, 640, center_out_offsets(1), cfg.cost),
-        (480, 640, center_out_offsets(1), cfg.pass2_cost),
-        (1080, 1920, center_out_offsets(1), cfg.pass2_cost),
-        (1080, 1920, center_out_offsets(1), cfg.cost),
+    # (h, w, candidates, cost config, plane mode) of the main paths: the
+    # plane mode takes 4 frame-2 tap tables of 49 (pass 1) or 25 taps
+    cases = [
+        (60, 80, center_out_offsets(3), mini, False),
+        (120, 160, center_out_offsets(3), cfg.cost, False),
+        (480, 640, center_out_offsets(1), cfg.cost, False),
+        (480, 640, center_out_offsets(1), cfg.pass2_cost, False),
+        (1080, 1920, center_out_offsets(1), cfg.pass2_cost, False),
+        (1080, 1920, center_out_offsets(1), cfg.cost, False),
+        (480, 640, center_out_offsets(1), cfg.cost, True),
+        (480, 640, center_out_offsets(1), cfg.pass2_cost, True),
+        (1080, 1920, center_out_offsets(1), cfg.pass2_cost, True),
+        (1080, 1920, center_out_offsets(1), cfg.cost, True),
     ]
-    for h, w, cands, ccfg in cases:
+    for h, w, cands, ccfg, planes in cases:
         (_, p1), (_, p2) = _packs(h, w, 3, -2, SEED, dev)
         g = torch.full((h, w), 2, dtype=torch.int32, device=dev)
         warped = warp_pack(p2, g + 1, -g)
-        k = cuda_cost.residual_costs_cuda(p1, warped, cands, ccfg)
-        ref = cuda_cost.residual_costs(p1, warped, cands, ccfg)
+        kernel = (cuda_cost.residual_costs_planes_cuda if planes
+                  else cuda_cost.residual_costs_cuda)
+        k = kernel(p1, warped, cands, ccfg)
+        ref = cuda_cost.residual_costs(p1, warped, cands, ccfg, planes)
         err = float((k - ref).abs().max())
         differ = float((k != ref).float().mean())
         reps = 20 if h * w < 300_000 else 5
-        ms = cuda_ms(lambda: cuda_cost.residual_costs_cuda(
-            p1, warped, cands, ccfg), reps)
+        ms = cuda_ms(lambda: kernel(p1, warped, cands, ccfg), reps)
         pms = cuda_ms(lambda: cuda_cost.residual_costs(
-            p1, warped, cands, ccfg), max(1, reps // 5))
-        log(f"cost   {h}x{w} K={len(cands)} taps={len(ccfg.tap_offsets)}: "
-            f"max|diff| {err:.3g} ({differ:.2%} differ)  kernel {ms:.3f} ms  "
+            p1, warped, cands, ccfg, planes), max(1, reps // 5), warm=False)
+        mode = "planes" if planes else "cost  "
+        log(f"{mode} {h}x{w} K={len(cands)} taps={len(ccfg.tap_offsets)}"
+            f"{' x 4 tables' if planes else ''}: max|diff| {err:.3g} "
+            f"({differ:.2%} differ)  kernel {ms:.3f} ms  plain {pms:.3f} ms")
+        check(err <= 1e-4, f"kernel A {mode.strip()} diff {err} > 1e-4")
+        record("residual_costs_planes" if planes else "residual_costs",
+               err, ms, pms)
+
+    # the coarse levels of 1080p (auto depth) and of 4K at depth 3, global
+    # proposals on the stride-2 grid: 68x120 and 270x480 descriptors
+    for h, w in [(135, 240), (540, 960)]:
+        (_, p1), (_, p2) = _packs(h, w, 3, -2, SEED + 4, dev)
+        d1, d2 = (patch_descriptors(p, cfg.match, stride=2) for p in (p1, p2))
+        d = d1.shape[-1]
+        a, b = d1.reshape(-1, d).contiguous(), d2.reshape(-1, d).contiguous()
+        k = cuda_match.global_argmax_cuda(a, b)
+        ref = cuda_match.global_argmax(a, b, cfg.match.global_block)
+        err = float((k - ref).abs().max())
+        big = a.shape[0] > 50_000
+        ms = cuda_ms(lambda: cuda_match.global_argmax_cuda(a, b),
+                     2 if big else 10)
+        pms = cuda_ms(lambda: cuda_match.global_argmax(
+            a, b, cfg.match.global_block), 1 if big else 3, warm=False)
+        tflops = 2.0 * a.shape[0] * b.shape[0] * d / (ms * 1e-3) / 1e12
+        log(f"argmax {d1.shape[0]}x{d1.shape[1]} descriptors "
+            f"(N1=N2={a.shape[0]}, D={d}): {'identical' if err == 0 else 'DIFFER'}"
+            f" indices  kernel {ms:.3f} ms ({tflops:.2f} float64 TFLOP/s)  "
             f"plain {pms:.3f} ms")
-        check(err <= 1e-4, f"kernel A cost diff {err} > 1e-4")
-        record("residual_costs", err, ms, pms)
+        check(err == 0, f"kernel D indices differ (max |diff| {err})")
+        record("global_argmax", err, ms, pms)
 
     for h, w in [(120, 160), (135, 240)]:
         (_, p1), (_, p2) = _packs(h, w, 3, -2, SEED + 1, dev)
@@ -262,95 +312,200 @@ def phase_kernels(dev) -> dict:
     return rows
 
 
-def interior_epe(flow: np.ndarray, dx: int, dy: int, margin: int) -> float:
-    """Mean endpoint error against the known shift over pixels whose
-    target lies in the frame, ``margin`` px away from every border."""
-    h, w = flow.shape[:2]
+def interior(h: int, w: int, dx: int, dy: int, margin: int) -> np.ndarray:
+    """Pixels whose target under the shift (dx, dy) lies in the frame,
+    ``margin`` px away from every border."""
     ys, xs = np.mgrid[0:h, 0:w]
-    inside = ((xs + dx >= margin) & (xs + dx < w - margin)
-              & (ys + dy >= margin) & (ys + dy < h - margin)
-              & (xs >= margin) & (xs < w - margin)
-              & (ys >= margin) & (ys < h - margin))
+    return ((xs + dx >= margin) & (xs + dx < w - margin)
+            & (ys + dy >= margin) & (ys + dy < h - margin)
+            & (xs >= margin) & (xs < w - margin)
+            & (ys >= margin) & (ys < h - margin))
+
+
+def interior_epe(flow: np.ndarray, dx: int, dy: int, margin: int) -> float:
+    """Mean endpoint error against the known shift over the interior."""
+    inside = interior(flow.shape[0], flow.shape[1], dx, dy, margin)
     err = np.hypot(flow[..., 0] - dx, flow[..., 1] - dy)
     return float(err[inside].mean())
 
 
-def phase_end_to_end(dev) -> dict:
-    log("== phase 4: end to end (EPPMFlow, DEFAULT_CONFIG, synthetic pairs)")
-    from eppm_tpu_torch.metrics import warp_error
-    from eppm_tpu_torch.ops import cuda_cost, cuda_smooth, cuda_wmf
-    from eppm_tpu_torch.pipeline import EPPMFlow
+def counters() -> dict:
+    """Each kernel's launch counter, by the name of its row."""
+    from eppm_tpu_torch.ops import cuda_cost, cuda_match, cuda_smooth
+    from eppm_tpu_torch.ops import cuda_wmf
 
-    counters = {
+    return {
         "residual_costs": cuda_cost.SINGLE,
         "residual_costs_multiwarp": cuda_cost.MULTIWARP,
         "flow_smoothing": cuda_smooth.KERNEL,
         "weighted_median_filter": cuda_wmf.KERNEL,
+        "residual_costs_planes": cuda_cost.PLANES,
+        "global_argmax": cuda_match.KERNEL,
     }
+
+
+def drive(path: str, kernels, run) -> dict:
+    """Run one path with every launch count set to 0 just before it and
+    read just after; fail unless each of its ``kernels`` was launched."""
+    cs = counters()
+    for c in cs.values():
+        c.launches = 0
+    run()
+    torch.cuda.synchronize()
+    launches = {name: c.launches for name, c in cs.items()}
+    log(f"launches on the {path} path: {launches}")
+    for name in kernels:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the {path} path")
+    return launches
+
+
+def flow_case(model, dev, h, w, dx, dy, seed) -> None:
+    """One synthetic pair through ``model`` (a warm-up run, then a timed
+    one), gated on the warp error."""
+    from eppm_tpu_torch.metrics import warp_error
+
+    f1, f2 = shifted_pair(h, w, dx, dy, seed)
+    img1 = torch.from_numpy(f1).to(dev)
+    img2 = torch.from_numpy(f2).to(dev)
+    model(img1, img2)  # first run: allocator and library warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flow = model(img1, img2)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    check(tuple(flow.shape) == (h, w, 2), f"flow shape {flow.shape}")
+    flow = flow.cpu().numpy()
+    check(bool(np.isfinite(flow).all()), "non-finite flow")
+    a = f1.astype(np.float64) / 255.0
+    b = f2.astype(np.float64) / 255.0
+    we = warp_error(a, b, flow)
+    we0 = warp_error(a, b, np.zeros_like(flow))
+    epe = interior_epe(flow, dx, dy, 16)
+    log(f"e2e {w}x{h} shift ({dx},{dy}) [synthetic]: {ms:.1f} ms  "
+        f"warp error {we:.4f} vs zero-flow {we0:.4f} "
+        f"(ratio {we / we0:.3f})  interior EPE {epe:.4f}")
+    check(we < 0.6 * we0, f"warp error {we:.4f} >= 0.6 x {we0:.4f}")
+
+
+PLANES_CFG = dict(dense_pass1_planes=True, dense_pass2_planes=True)
+
+
+def match_coarse_depth3(dev, h=2160, w=3840, dx=-96, dy=64) -> None:
+    """``match_coarse`` on the coarse level of a ``w``x``h`` pair at depth
+    3 (a 3840x2160 pair by default): the known shift, a multiple of 4, is
+    recovered in the interior."""
+    from eppm_tpu_torch.config import DEFAULT_CONFIG as base
+    from eppm_tpu_torch.ops.match import match_coarse
+    from eppm_tpu_torch.pipeline import prepare_pyramids
+
+    cfg = dataclasses.replace(base, pyramid=dataclasses.replace(
+        base.pyramid, auto_depth_dim=0))
+    f1, f2 = shifted_pair(h, w, dx, dy, SEED + 14)
+    lv1, pk1 = prepare_pyramids(torch.from_numpy(f1).to(dev), cfg)
+    lv2, pk2 = prepare_pyramids(torch.from_numpy(f2).to(dev), cfg)
+    ch, cw = lv1[-1].shape[0], lv1[-1].shape[1]
+    check((ch, cw) == (h // 4, w // 4), f"coarse level {ch}x{cw}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tx, ty, cost = match_coarse(lv1[-1], lv2[-1], cfg.cost, cfg.match,
+                                pk1[-1], pk2[-1])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    check(tuple(tx.shape) == (ch, cw) and tuple(ty.shape) == (ch, cw),
+          f"target shape {tuple(tx.shape)}")
+    check(bool(torch.isfinite(cost).all()), "non-finite match cost")
+    flow = torch.stack([tx, ty], -1).cpu().numpy().astype(np.float32)
+    ys, xs = np.mgrid[0:ch, 0:cw]
+    flow -= np.stack([xs, ys], -1)
+    sx, sy = dx // 4, dy // 4
+    epe = interior_epe(flow, sx, sy, 16)
+    hit = float((flow == (sx, sy)).all(-1)[interior(ch, cw, sx, sy, 16)]
+                .mean())
+    log(f"match_coarse {w}x{h} depth 3: coarse {cw}x{ch}, shift ({sx},{sy}): "
+        f"{ms:.1f} ms  {hit:.2%} of interior targets exact, "
+        f"interior EPE {epe:.4f}")
+    check(hit >= 0.9, f"match_coarse recovered the shift on only {hit:.2%}")
+
+
+def phase_end_to_end(dev) -> dict:
+    log("== phase 4: end to end (synthetic pairs), one path at a time")
+    from eppm_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from eppm_tpu_torch.pipeline import EPPMFlow
+
     cases = [  # (h, w, dx, dy, seed): a small and a large translation
         (480, 640, 3, -2, SEED + 10),
         (480, 640, 37, 21, SEED + 11),
         (1080, 1920, 5, 3, SEED + 12),
         (1080, 1920, -70, 44, SEED + 13),
     ]
-    model = EPPMFlow()
-    for c in counters.values():
-        c.launches = 0
-    for h, w, dx, dy, seed in cases:
-        f1, f2 = shifted_pair(h, w, dx, dy, seed)
-        img1 = torch.from_numpy(f1).to(dev)
-        img2 = torch.from_numpy(f2).to(dev)
-        model(img1, img2)  # first run: allocator and library warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        flow = model(img1, img2)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        check(tuple(flow.shape) == (h, w, 2), f"flow shape {flow.shape}")
-        flow = flow.cpu().numpy()
-        check(bool(np.isfinite(flow).all()), "non-finite flow")
-        a = f1.astype(np.float64) / 255.0
-        b = f2.astype(np.float64) / 255.0
-        we = warp_error(a, b, flow)
-        we0 = warp_error(a, b, np.zeros_like(flow))
-        epe = interior_epe(flow, dx, dy, 16)
-        log(f"e2e {w}x{h} shift ({dx},{dy}) [synthetic]: {ms:.1f} ms  "
-            f"warp error {we:.4f} vs zero-flow {we0:.4f} "
-            f"(ratio {we / we0:.3f})  interior EPE {epe:.4f}")
-        check(we < 0.6 * we0, f"warp error {we:.4f} >= 0.6 x {we0:.4f}")
-    launches = {name: c.launches for name, c in counters.items()}
-    log(f"launches over the end-to-end runs: {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    default = ["residual_costs", "residual_costs_multiwarp",
+               "flow_smoothing", "weighted_median_filter"]
+    paths = [  # (path, config, cases, kernels it must launch)
+        ("default", cfg, cases, default),
+        ("planes", dataclasses.replace(cfg, **PLANES_CFG), cases,
+         default + ["residual_costs_planes"]),
+        ("gather", dataclasses.replace(cfg, refine_impl="gather"),
+         cases[:2], default),
+    ]
+    launches = {}
+    for path, pcfg, pcases, kernels in paths:
+        log(f"-- {path}: EPPMFlow")
+        model = EPPMFlow(pcfg)
+        launches[path] = drive(path, kernels, lambda: [
+            flow_case(model, dev, *case) for case in pcases])
+    log("-- match_coarse at 4K, depth 3")
+    launches["match_coarse"] = drive(
+        "match_coarse", ["residual_costs", "residual_costs_multiwarp",
+                         "global_argmax"], lambda: match_coarse_depth3(dev))
     return launches
 
 
 def phase_agreement(dev) -> None:
     log("== phase 5: the port on the card against the port on the CPU")
+    from eppm_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from eppm_tpu_torch.ops.match import match_coarse
     from eppm_tpu_torch.pipeline import compute_flow
 
     h, w = 192, 256
     f1, f2 = shifted_pair(h, w, 3, -2, SEED + 20)
-    gpu = compute_flow(torch.from_numpy(f1).to(dev),
-                       torch.from_numpy(f2).to(dev)).cpu().numpy()
-    cpu = compute_flow(torch.from_numpy(f1), torch.from_numpy(f2)).numpy()
-    d = np.abs(gpu - cpu).max(axis=-1)
-    agree = float((d < 1e-3).mean())
-    log(f"192x256: {agree:.4%} of pixels agree within 1e-3, "
-        f"mean |diff| {float(d.mean()):.3g}, max {float(d.max()):.3g}")
-    check(agree >= 0.98, f"only {agree:.2%} of pixels agree")
-    check(float(d.mean()) < 0.05, f"mean |diff| {float(d.mean())}")
+    for name, pcfg in [("default", cfg),
+                       ("planes", dataclasses.replace(cfg, **PLANES_CFG))]:
+        gpu = compute_flow(torch.from_numpy(f1).to(dev),
+                           torch.from_numpy(f2).to(dev), pcfg).cpu().numpy()
+        cpu = compute_flow(torch.from_numpy(f1), torch.from_numpy(f2),
+                           pcfg).numpy()
+        d = np.abs(gpu - cpu).max(axis=-1)
+        agree = float((d < 1e-3).mean())
+        log(f"192x256 {name}: {agree:.4%} of pixels agree within 1e-3, "
+            f"mean |diff| {float(d.mean()):.3g}, max {float(d.max()):.3g}")
+        check(agree >= 0.98, f"{name}: only {agree:.2%} of pixels agree")
+        check(float(d.mean()) < 0.05, f"{name}: mean |diff| {float(d.mean())}")
+
+    (i1, p1), (i2, p2) = _packs(60, 80, -5, 3, SEED + 21, dev)
+    gpu = match_coarse(i1, i2, cfg.cost, cfg.match, p1, p2)
+    cpu = match_coarse(i1.cpu(), i2.cpu(), cfg.cost, cfg.match, p1.cpu(),
+                       p2.cpu())
+    same = [bool(torch.equal(g.cpu(), c)) for g, c in zip(gpu[:2], cpu[:2])]
+    log(f"match_coarse 60x80: targets {'identical' if all(same) else 'DIFFER'}"
+        f" on the card and the CPU")
+    check(all(same), "match_coarse targets differ between card and CPU")
 
 
-SOURCES = {
+SOURCES = {  # name: (source, the TPU kernel it replaces, the path it runs on)
     "residual_costs": ("eppm_tpu_torch/csrc/cost.cu",
-                       "eppm_tpu/ops/pallas_cost.py:173"),
+                       "eppm_tpu/ops/pallas_cost.py:173", "default"),
     "residual_costs_multiwarp": ("eppm_tpu_torch/csrc/cost.cu",
-                                 "eppm_tpu/ops/pallas_cost.py:60"),
+                                 "eppm_tpu/ops/pallas_cost.py:60", "default"),
     "flow_smoothing": ("eppm_tpu_torch/csrc/smooth.cu",
-                       "eppm_tpu/ops/pallas_smooth.py:38"),
+                       "eppm_tpu/ops/pallas_smooth.py:38", "default"),
     "weighted_median_filter": ("eppm_tpu_torch/csrc/wmf.cu",
-                               "eppm_tpu/ops/pallas_wmf.py:52"),
+                               "eppm_tpu/ops/pallas_wmf.py:52", "default"),
+    "residual_costs_planes": ("eppm_tpu_torch/csrc/cost.cu",
+                              "eppm_tpu/ops/pallas_cost.py:60 "
+                              "(plane tables, wrapper :389)", "planes"),
+    "global_argmax": ("eppm_tpu_torch/csrc/match.cu",
+                      "eppm_tpu/ops/pallas_match.py:40", "match_coarse"),
 }
 
 
@@ -360,6 +515,7 @@ def main() -> int:
         return 1
     import eppm_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    t0 = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = phase_versions()
     phase_build()
@@ -367,14 +523,15 @@ def main() -> int:
     launches = phase_end_to_end(dev)
     phase_agreement(dev)
     kernels = []
-    for name, (source, replaces) in SOURCES.items():
+    for name, (source, replaces, path) in SOURCES.items():
         r = rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": launches[path][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"],
         })
+    log(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)  # name, power limit: as nvidia-smi prints them
     print(json.dumps({"ok": True, "device": {

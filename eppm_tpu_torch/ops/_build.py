@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 The sources in ``eppm_tpu_torch/csrc`` export plain C functions.  At first
-use they are compiled with ``nvcc -gencode arch=compute_90a,code=sm_90a
--O3 --fmad=false`` into one shared library,
+use each is compiled with ``nvcc -gencode arch=compute_90a,code=sm_90a
+-O3 --fmad=false`` (one nvcc per source, all started together), linked
+into one shared library,
 ``eppm_tpu_torch/_build/libeppm_kernels-<hash>.so`` (the hash covers the
 sources and the flags, so an edited source rebuilds), and loaded with
 ``ctypes``.  ``--fmad=false`` keeps each multiply and add rounded on its
@@ -29,10 +30,12 @@ __all__ = ["CudaKernel", "BUILD_DIR", "CSRC_DIR", "build_library",
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
-NVCC_FLAGS = (
+COMPILE_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xcompiler", "-fPIC",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
+NVCC_FLAGS = COMPILE_FLAGS + LINK_FLAGS
 
 
 def nvcc_path() -> str:
@@ -45,6 +48,20 @@ def nvcc_path() -> str:
     if os.path.exists(cand):
         return cand
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _nvcc(*args: str) -> subprocess.Popen:
+    return subprocess.Popen([nvcc_path(), *args], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _wait(*jobs: subprocess.Popen) -> None:
+    """Wait for every nvcc; raise with the output of those that failed."""
+    logs = [job.communicate()[0] for job in jobs]
+    failed = [f"nvcc failed ({' '.join(job.args)}):\n{log}"
+              for job, log in zip(jobs, logs) if job.returncode != 0]
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def _sources():
@@ -75,17 +92,15 @@ def build_library() -> ctypes.CDLL:
         t0 = time.perf_counter()
         # build into a private name, then rename: concurrent builders never
         # load a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-               *(str(s) for s in sorted(CSRC_DIR.glob("*.cu")))]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({' '.join(cmd)}):\n{res.stdout}{res.stderr}"
-            )
-        os.replace(tmp, out)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            # one nvcc per source, all started together, then one link
+            srcs = sorted(CSRC_DIR.glob("*.cu"))
+            objs = [os.path.join(tmp, src.stem + ".o") for src in srcs]
+            _wait(*(_nvcc(*COMPILE_FLAGS, "-c", "-o", obj, str(src))
+                    for src, obj in zip(srcs, objs)))
+            lib = os.path.join(tmp, "lib.so")
+            _wait(_nvcc(*LINK_FLAGS, "-o", lib, *objs))
+            os.replace(lib, out)
         _build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(out))
     lib.eppm_error_string.argtypes = [ctypes.c_int]

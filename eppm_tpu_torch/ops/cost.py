@@ -16,14 +16,19 @@ with dr1 = max_c |I1(p1) - I1(p1+d)|, dr2 = max_c |I2(p2) - I2(p2+d)| and
 G the separable spatial Gaussian.  Frames are packed (H, W, 4) float32:
 r, g, b and the census signature stored as a float.
 
-The exact stage gathers frame-2 taps at per-pixel targets; it is not a
-Pallas kernel in the JAX package and stays plain torch here.
+The plane-fitting variant (:334-513) evaluates frame-2 taps under four
+affine hypotheses and keeps the least cost; at integral query points each
+hypothesis is a static integer tap table (``plane_offsets``).
+
+The gathered costs (the exact stage, the plane-fitting re-search of
+``refine_impl="gather"``) read frame-2 taps at per-pixel targets; they are
+not Pallas kernels in the JAX package and stay plain torch here.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Iterable, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,7 +37,19 @@ from ..config import CostConfig
 from ._util import exp_cephes, ftz, inv32, pad_edge, popcount8, shift2d
 
 __all__ = ["pack_frame", "make_patch_stack", "patch_cost_stack", "tap_weight",
-           "cost_constants"]
+           "cost_constants", "bilateral_cost", "PLANE_COEFS", "plane_offsets",
+           "patch_cost_planefitting", "quantize_cost", "TAP_CHUNK"]
+
+# Taps per partial sum of the cost (the JAX package's ``cost_tap_chunk``).
+TAP_CHUNK = 25
+
+# Plane-fitting affine hypothesis coefficients (u_x, u_y, v_x, v_y)
+# (bao_pmflow_kernel.cu:319-332).
+PLANE_COEFS = (
+    (0.177, -0.011, -0.003, 0.301),   # COEF_FL_*
+    (0.125, -0.357, 0.009, 0.308),    # COEF_LEFT_*
+    (0.205, 0.370, 0.011, 0.296),     # COEF_RIGHT_*
+)
 
 
 def pack_frame(img: torch.Tensor, census: torch.Tensor) -> torch.Tensor:
@@ -64,6 +81,48 @@ def tap_weight(dy: int, dx: int, sigma_spatial: float) -> float:
     s2 = sigma_spatial * sigma_spatial
     g = math.exp(-(dy * dy) / s2) * math.exp(-(dx * dx) / s2)
     return float(torch.tensor(g, dtype=torch.float32))
+
+
+def bilateral_cost(
+    taps: Iterable[Tuple[torch.Tensor, torch.Tensor]],
+    center1: torch.Tensor,
+    center2: torch.Tensor,
+    gws: Sequence[float],
+    cfg: CostConfig,
+    chunk: int,
+) -> torch.Tensor:
+    """sum(w * (c_ad + c_cen)) / max(sum(w), 1e-30) over the (p1, p2) tap
+    pairs ``taps`` (packs, in table order; p2 may carry a leading
+    candidate dim) with spatial weights ``gws``, the RGB centres
+    ``center1`` and ``center2`` giving the range weights.  Taps sum in
+    partial sums of ``chunk`` taps, as the JAX package's scans do; the
+    weight is its single ``exp(-(dr1^2 + dr2^2)/sigma_r^2) * G(d)``.
+    Kernel A computes the same operations in the same order."""
+    inv_lam_ad2, inv_lam_cen2, inv_sig_r2 = cost_constants(cfg)
+    cost_sum = weight_sum = part_c = part_w = 0.0
+    n = len(gws)
+    for t, ((p1, p2), gw) in enumerate(zip(taps, gws)):
+        ad = maxabs3(p1[..., :3], p2[..., :3])
+        c_ad = 1.0 - exp_cephes(-(ad * ad) * inv_lam_ad2)
+        x = p1[..., 3].to(torch.int32) ^ p2[..., 3].to(torch.int32)
+        ham = popcount8(x).to(torch.float32)
+        c_cen = 1.0 - exp_cephes(-(ham * ham) * inv_lam_cen2)
+        dr1 = maxabs3(center1, p1[..., :3])
+        dr2 = maxabs3(center2, p2[..., :3])
+        wgt = ftz(exp_cephes(-(dr1 * dr1 + dr2 * dr2) * inv_sig_r2) * gw)
+        part_c = part_c + wgt * (c_ad + c_cen)
+        part_w = part_w + wgt
+        if (t + 1) % chunk == 0 or t + 1 == n:
+            cost_sum = cost_sum + part_c
+            weight_sum = weight_sum + part_w
+            part_c = part_w = 0.0
+    return cost_sum / weight_sum.clamp_min(1e-30)
+
+
+def quantize_cost(cost: torch.Tensor) -> torch.Tensor:
+    """Round a cost to the 2^-17 grid, so argmin ties resolve alike
+    across implementations."""
+    return torch.round(cost * 131072.0) * (1.0 / 131072.0)
 
 
 def make_patch_stack(
@@ -98,30 +157,78 @@ def patch_cost_stack(
     H2, W2 = stack2.shape[0], stack2.shape[1]
     T = len(offsets2)
     R = cfg.patch_radius
-    inv_lam_ad2, inv_lam_cen2, inv_sig_r2 = cost_constants(cfg)
-
     pad1 = pad_edge(pack1, R, R)
     flat = stack2.reshape(H2 * W2, 4 * (T + 1))
     idx = (tys.clamp(0, H2 - 1) * W2 + txs.clamp(0, W2 - 1)).reshape(-1)
     taps2 = flat[idx.long()].reshape(K, H, W, T + 1, 4).to(torch.float32)
-    center2 = taps2[..., T, :3]
-    center1 = pack1[..., :3]
+    taps1 = list(cfg.tap_offsets)[:T]
+    pairs = ((pad1[R + i1 : R + i1 + H, R + j1 : R + j1 + W], taps2[..., t, :])
+             for t, (i1, j1) in enumerate(taps1))
+    gws = [tap_weight(i1, j1, cfg.sigma_spatial) for (i1, j1) in taps1]
+    # the JAX form sums every tap in one running sum: one chunk
+    return bilateral_cost(pairs, pack1[..., :3], taps2[..., T, :3], gws, cfg,
+                          chunk=len(gws))
 
-    cost_sum = torch.zeros((K, H, W), dtype=torch.float32, device=pack1.device)
-    weight_sum = torch.zeros_like(cost_sum)
-    for t, ((i1, j1), _) in enumerate(zip(cfg.tap_offsets, offsets2)):
-        gw = tap_weight(i1, j1, cfg.sigma_spatial)
-        p1 = pad1[R + i1 : R + i1 + H, R + j1 : R + j1 + W]
-        p2 = taps2[..., t, :]
-        ad = maxabs3(p1[None, ..., :3], p2[..., :3])
-        c_ad = 1.0 - exp_cephes(-(ad * ad) * inv_lam_ad2)
-        ham = popcount8(
-            p1[None, ..., 3].to(torch.int32) ^ p2[..., 3].to(torch.int32)
-        ).to(torch.float32)
-        c_cen = 1.0 - exp_cephes(-(ham * ham) * inv_lam_cen2)
-        dr1 = maxabs3(center1, p1[..., :3])[None]
-        dr2 = maxabs3(center2, p2[..., :3])
-        w = ftz(exp_cephes(-(dr1 * dr1 + dr2 * dr2) * inv_sig_r2) * gw)
-        cost_sum = cost_sum + w * (c_ad + c_cen)
-        weight_sum = weight_sum + w
-    return cost_sum / weight_sum.clamp_min(1e-30)
+
+def plane_offsets(cfg: CostConfig) -> List[Tuple[Tuple[int, int], ...]]:
+    """Static frame-2 tap tables of the 4 plane hypotheses: hypothesis 0
+    is fronto-parallel (the frame-1 grid); 1-3 warp tap (i, j) to
+    floor(i + j*v_x + i*v_y), floor(j + j*u_x + i*u_y) — point-sampled
+    texture reads at integral query points (bao_pmflow_kernel.cu:402-407),
+    so the tables reach a little past the patch radius."""
+    tables = [tuple(cfg.tap_offsets)]
+    for ux, uy, vx, vy in PLANE_COEFS:
+        tables.append(tuple(
+            (int(math.floor(i + j * vx + i * vy)),
+             int(math.floor(j + j * ux + i * uy)))
+            for (i, j) in cfg.tap_offsets
+        ))
+    return tables
+
+
+def patch_cost_offsets(
+    pack1: torch.Tensor,
+    pack2: torch.Tensor,
+    tx: torch.Tensor,
+    ty: torch.Tensor,
+    cfg: CostConfig,
+    offsets2: Sequence[Tuple[int, int]],
+) -> torch.Tensor:
+    """Gathered cost at absolute targets (tx, ty) (H, W) int32 with frame-2
+    tap offsets ``offsets2`` (frame-1 taps follow ``cfg.tap_offsets``);
+    every read clamps to the frame -> (H, W) float32, unquantized
+    (``eppm_tpu/ops/cost.py::_patch_cost_offsets``)."""
+    H, W = tx.shape
+    H2, W2 = pack2.shape[0], pack2.shape[1]
+    R = cfg.patch_radius
+    pad1 = pad_edge(pack1, R, R)
+    flat2 = pack2.reshape(H2 * W2, 4)
+
+    def at2(dy: int, dx: int) -> torch.Tensor:
+        cy = (ty + dy).clamp(0, H2 - 1)
+        cx = (tx + dx).clamp(0, W2 - 1)
+        return flat2[(cy * W2 + cx).long()]
+
+    taps1 = list(cfg.tap_offsets)
+    pairs = ((pad1[R + i1 : R + i1 + H, R + j1 : R + j1 + W], at2(i2, j2))
+             for (i1, j1), (i2, j2) in zip(taps1, offsets2))
+    gws = [tap_weight(i1, j1, cfg.sigma_spatial) for (i1, j1) in taps1]
+    return bilateral_cost(pairs, pack1[..., :3], at2(0, 0)[..., :3], gws, cfg,
+                          chunk=TAP_CHUNK)
+
+
+def patch_cost_planefitting(
+    pack1: torch.Tensor,
+    pack2: torch.Tensor,
+    tx: torch.Tensor,
+    ty: torch.Tensor,
+    cfg: CostConfig,
+) -> torch.Tensor:
+    """Least gathered cost over the 4 plane hypotheses
+    (bao_pmflow_kernel.cu:334-513; ``eppm_tpu/ops/cost.py::
+    patch_cost_planefitting``)."""
+    cost = None
+    for offsets2 in plane_offsets(cfg):
+        c = patch_cost_offsets(pack1, pack2, tx, ty, cfg, offsets2)
+        cost = c if cost is None else torch.minimum(cost, c)
+    return cost

@@ -16,11 +16,9 @@ from typing import List, Sequence, Tuple
 import torch
 
 from ..config import FLT_MAX, UNKNOWN_FLOW_THRESH, CostConfig
-from ._util import exp_cephes, ftz, grid, pad_edge, popcount8, shift2d
-from .cost import cost_constants, tap_weight
-
-# Taps per partial sum of the cost (the JAX package's ``cost_tap_chunk``).
-TAP_CHUNK = 25
+from ._util import grid, pad_edge, shift2d
+from .cost import (TAP_CHUNK, bilateral_cost, plane_offsets, quantize_cost,
+                   tap_weight)
 
 __all__ = [
     "center_out_offsets",
@@ -30,6 +28,7 @@ __all__ = [
     "residual_costs",
     "residual_costs_multiwarp",
     "dense_refine_flow",
+    "cost_tables",
 ]
 
 
@@ -94,57 +93,40 @@ def warp_pack(
 
 
 def _cost_from_stack(
-    pack1: torch.Tensor, frames: torch.Tensor, m: int, cfg: CostConfig,
+    pack1: torch.Tensor,
+    frames: torch.Tensor,
+    m: int,
+    cfg: CostConfig,
+    taps2: Sequence[Tuple[int, int]],
 ) -> torch.Tensor:
     """Shared plain cost: ``frames`` is (K, H+2m, W+2m, 4) — candidate k's
     frame-2 region, already offset by its candidate and edge-padded by
-    ``m`` >= every |tap| — against pack1 (H, W, 4) -> (K, H, W).
-
-    Taps accumulate in ``cfg.tap_offsets`` order, in partial sums of
-    ``TAP_CHUNK`` taps like the JAX oracle's scan; the weight is the
-    oracle's single ``exp(-(dr1^2 + dr2^2)/sigma_r^2) * G(d)``."""
+    ``m`` >= every |tap| — against pack1 (H, W, 4) -> (K, H, W) on the
+    2^-17 grid.  Frame-1 taps follow ``cfg.tap_offsets``, frame-2 taps the
+    table ``taps2`` (the same grid, or a plane hypothesis's); the frame-2
+    range-weight centre stays the candidate's own pixel."""
     h, w = pack1.shape[0], pack1.shape[1]
-    R = max(max(abs(i), abs(j)) for (i, j) in cfg.tap_offsets)
+    taps1 = list(cfg.tap_offsets)
+    R = _reach(taps1)
     pad1 = pad_edge(pack1, R, R)
-    inv_lam_ad2, inv_lam_cen2, inv_sig_r2 = cost_constants(cfg)
-    center1 = pack1[..., :3]
-    center2 = frames[:, m : m + h, m : m + w, :3]
-    cost_sum = torch.zeros(
-        (frames.shape[0], h, w), dtype=torch.float32, device=pack1.device
-    )
-    weight_sum = torch.zeros_like(cost_sum)
-    taps = list(cfg.tap_offsets)
-    for c0 in range(0, len(taps), TAP_CHUNK):
-        part_c = torch.zeros_like(cost_sum)
-        part_w = torch.zeros_like(cost_sum)
-        for (dy, dx) in taps[c0 : c0 + TAP_CHUNK]:
-            gw = tap_weight(dy, dx, cfg.sigma_spatial)
-            p1 = pad1[R + dy : R + dy + h, R + dx : R + dx + w]
-            p2 = frames[:, m + dy : m + dy + h, m + dx : m + dx + w]
-            d = (p1[..., :3] - p2[..., :3]).abs()
-            ad = torch.maximum(torch.maximum(d[..., 0], d[..., 1]), d[..., 2])
-            c_ad = 1.0 - exp_cephes(-(ad * ad) * inv_lam_ad2)
-            x = p1[..., 3].to(torch.int32) ^ p2[..., 3].to(torch.int32)
-            ham = popcount8(x).to(torch.float32)
-            c_cen = 1.0 - exp_cephes(-(ham * ham) * inv_lam_cen2)
-            d1 = (center1 - p1[..., :3]).abs()
-            dr1 = torch.maximum(torch.maximum(d1[..., 0], d1[..., 1]),
-                                d1[..., 2])
-            d2 = (center2 - p2[..., :3]).abs()
-            dr2 = torch.maximum(torch.maximum(d2[..., 0], d2[..., 1]),
-                                d2[..., 2])
-            wgt = ftz(exp_cephes(-(dr1 * dr1 + dr2 * dr2) * inv_sig_r2) * gw)
-            part_c = part_c + wgt * (c_ad + c_cen)
-            part_w = part_w + wgt
-        cost_sum = cost_sum + part_c
-        weight_sum = weight_sum + part_w
-    cost = cost_sum / weight_sum.clamp_min(1e-30)
-    # 2^-17 grid: argmin ties resolve alike across implementations
-    return torch.round(cost * 131072.0) * (1.0 / 131072.0)
+    pairs = ((pad1[R + dy : R + dy + h, R + dx : R + dx + w],
+              frames[:, m + ey : m + ey + h, m + ex : m + ex + w])
+             for (dy, dx), (ey, ex) in zip(taps1, taps2))
+    gws = [tap_weight(dy, dx, cfg.sigma_spatial) for (dy, dx) in taps1]
+    cost = bilateral_cost(pairs, pack1[..., :3],
+                          frames[:, m : m + h, m : m + w, :3], gws, cfg,
+                          chunk=TAP_CHUNK)
+    return quantize_cost(cost)
 
 
-def _tap_reach(cfg: CostConfig) -> int:
-    return max(max(abs(i), abs(j)) for (i, j) in cfg.tap_offsets)
+def _reach(taps: Sequence[Tuple[int, int]]) -> int:
+    return max(max(abs(i), abs(j)) for (i, j) in taps)
+
+
+def cost_tables(cfg: CostConfig, use_planes: bool):
+    """Frame-2 tap tables of the cost: the 4 plane hypotheses, or the
+    frame-1 grid alone."""
+    return plane_offsets(cfg) if use_planes else [tuple(cfg.tap_offsets)]
 
 
 def residual_costs(
@@ -152,23 +134,32 @@ def residual_costs(
     warped2: torch.Tensor,
     cand_offsets: Sequence[Tuple[int, int]],
     cfg: CostConfig,
+    use_planes: bool = False,
 ) -> torch.Tensor:
-    """Fronto-parallel cost of each residual candidate, densely: candidate
-    c at pixel p compares pack1(p+d) with warped2(clamp(p+c+d)) over the
-    tap grid -> (K, H, W) float32 on the 2^-17 grid.
+    """Cost of each residual candidate, densely: candidate c at pixel p
+    compares pack1(p+d) with warped2(clamp(p+c+d2)) over the tap grid,
+    d2 from each frame-2 tap table, and keeps the least cost over the
+    tables -> (K, H, W) float32 on the 2^-17 grid.  ``use_planes`` takes
+    the 4 plane hypotheses (the reference's re-search space), else the
+    fronto-parallel grid alone.
 
     The plain version of kernel A (``ops/cuda_cost.py``) and the port of
-    ``eppm_tpu/ops/dense.py::residual_costs(use_planes=False)``."""
+    ``eppm_tpu/ops/dense.py::residual_costs``."""
     h, w = pack1.shape[0], pack1.shape[1]
-    m = _tap_reach(cfg)
-    cmax = max(max(abs(a), abs(b)) for (a, b) in cand_offsets)
+    tables = cost_tables(cfg, use_planes)
+    m = max(_reach(t) for t in tables)
+    cmax = _reach(cand_offsets)
     P = cmax + m
     pad2 = pad_edge(warped2, P, P)
     frames = torch.stack([
         pad2[P + cy - m : P + cy + m + h, P + cx - m : P + cx + m + w]
         for (cy, cx) in cand_offsets
     ])
-    return _cost_from_stack(pack1, frames, m, cfg)
+    cost = None
+    for table in tables:
+        c = _cost_from_stack(pack1, frames, m, cfg, table)
+        cost = c if cost is None else torch.minimum(cost, c)
+    return cost
 
 
 def residual_costs_multiwarp(
@@ -177,9 +168,9 @@ def residual_costs_multiwarp(
     """Cost at candidate (0, 0) of K separately warped frames
     (K, H, W, 4) -> (K, H, W): the plain version of kernel A's multiwarp
     mode (``eppm_tpu/ops/pallas_cost.py::residual_costs_multiwarp_pallas``)."""
-    m = _tap_reach(cfg)
+    m = _reach(cfg.tap_offsets)
     frames = torch.stack([pad_edge(wk, m, m) for wk in warped_stack])
-    return _cost_from_stack(pack1, frames, m, cfg)
+    return _cost_from_stack(pack1, frames, m, cfg, cfg.tap_offsets)
 
 
 def dense_refine_flow(
@@ -190,12 +181,14 @@ def dense_refine_flow(
     search_radius: int = 1,
     cand_shape: str = "square",
     gather_dtype=None,
+    use_planes: bool = False,
 ) -> torch.Tensor:
-    """Search the candidates around trunc(flow) with the fronto-parallel
-    cost on the once-warped frame 2.  Unknown flow resets to 0, candidates
-    whose true target leaves frame 2 are skipped, ties keep the first
-    candidate (``eppm_tpu/ops/dense.py::dense_refine_flow`` without the
-    off-path plane tables and subpixel fit)."""
+    """Search the candidates around trunc(flow) with the residual cost on
+    the once-warped frame 2 (fronto-parallel, or the least over the 4
+    plane hypotheses with ``use_planes``).  Unknown flow resets to 0,
+    candidates whose true target leaves frame 2 are skipped, ties keep the
+    first candidate (``eppm_tpu/ops/dense.py::dense_refine_flow`` without
+    the subpixel fit)."""
     from .cuda_cost import residual_costs_auto
 
     h, w = flow.shape[:2]
@@ -208,7 +201,8 @@ def dense_refine_flow(
     warped2 = warp_pack(pack2, gx, gy, gather_dtype)
 
     cand_offsets = center_out_offsets(search_radius, cand_shape)
-    costs = residual_costs_auto(pack1, warped2, cand_offsets, cfg)
+    costs = residual_costs_auto(pack1, warped2, cand_offsets, cfg,
+                                use_planes=use_planes)
     best_dy, best_dx, _ = argmin_candidates(
         costs, cand_offsets, ys + gy, xs + gx, h2, w2, init=999999.0
     )

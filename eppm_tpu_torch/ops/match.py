@@ -5,7 +5,8 @@ target with a descriptor dot product — large-displacement recall, the
 role of PatchMatch's random init) and a dense local descent down a
 mini-pyramid with the true bilateral AD+census cost, followed by dense
 jump-flood propagation, a polish sweep and an exact-cost stage.  Returns
-absolute int32 target fields and their cost for both directions.
+absolute int32 target fields and their cost, for one direction
+(``match_coarse``) or both (``match_coarse_bidi``).
 
 Quantization is the JAX package's, so argmin decisions agree across
 implementations: costs on a 2^-17 grid, descriptor scores x4096 with the
@@ -23,18 +24,21 @@ import torch
 from ..config import FLT_MAX, CostConfig, MatchConfig
 from ._util import grid, shift2d
 from .census import census_transform
-from .cost import make_patch_stack, pack_frame, patch_cost_stack
+from .cost import make_patch_stack, pack_frame, patch_cost_stack, quantize_cost
 from .cuda_cost import residual_costs_auto, residual_costs_multiwarp_auto
 from .dense import argmin_candidates, center_out_offsets, median3, warp_pack
 from .resize import bilinear_resize, gaussian_filter
 
 __all__ = [
     "patch_descriptors",
+    "global_argmax",
+    "global_match",
     "global_match_bidi",
     "descend_level",
     "rescore",
     "rescore_multi",
     "propagate_dense",
+    "match_coarse",
     "match_coarse_bidi",
 ]
 
@@ -66,14 +70,13 @@ def patch_descriptors(
     return out.to(torch.bfloat16)
 
 
-def global_match_bidi(
-    desc1: torch.Tensor, desc2: torch.Tensor, block: int = 2048
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Both directions of the global SSD argmin from one score sweep:
-    argmin |a-b|^2 == argmax (a.b - |b|^2/2).  Frame-2 targets go in
-    blocks of ``block``; fwd keeps a running first maximum across blocks,
-    bwd takes each block's columns over all of frame 1.  Scores are
-    rounded x4096 before the argmax.  Returns (t1y, t1x, t2y, t2x).
+def _score_sweep(desc1: torch.Tensor, desc2: torch.Tensor, block: int,
+                 bwd: bool):
+    """The global score sweep over frame-2 blocks of ``block`` targets:
+    argmin |a-b|^2 == argmax (a.b - |b|^2/2), scores rounded x4096, the
+    first maximum winning.  Returns the forward argmax (N1,) int32 (a
+    running maximum, strict > across blocks) and, with ``bwd``, the
+    backward one (N2,) int32 (each block's columns over all of frame 1).
 
     The JAX package multiplies the bf16 descriptors with a float32
     result.  Here the bf16 values are multiplied and summed in float64: a
@@ -86,19 +89,15 @@ def global_match_bidi(
     to bf16; a float32 one sums in a device-dependent order, and on the
     GPU may use TF32.  No float32 product is taken, so the TF32 switches
     do not apply.)"""
-    h, w = desc1.shape[0], desc1.shape[1]
-    h2, w2 = desc2.shape[0], desc2.shape[1]
-    d = desc1.shape[2]
-    n1, n2 = h * w, h2 * w2
-    d1 = desc1.reshape(n1, d).to(torch.float64)
-    d2 = desc2.reshape(n2, d).to(torch.float64)
-    half_norm1 = 0.5 * (d1 * d1).sum(dim=1)
+    n1, n2 = desc1.shape[0], desc2.shape[0]
+    d1 = desc1.to(torch.float64)
+    d2 = desc2.to(torch.float64)
     half_norm2 = 0.5 * (d2 * d2).sum(dim=1)
+    half_norm1 = 0.5 * (d1 * d1).sum(dim=1) if bwd else None
     dev = desc1.device
-
     best_s = torch.full((n1,), -math.inf, dtype=torch.float64, device=dev)
     best_i = torch.zeros((n1,), dtype=torch.int32, device=dev)
-    bwd = []
+    cols = []
     ar1 = torch.arange(n1, dtype=torch.int32, device=dev)[:, None]
     for j0 in range(0, n2, block):
         raw = d1 @ d2[j0 : j0 + block].T
@@ -109,14 +108,54 @@ def global_match_bidi(
         better = s > best_s
         best_s = torch.where(better, s, best_s)
         best_i = torch.where(better, i.to(torch.int32) + j0, best_i)
-        # bwd: this block's columns are complete; explicit first index
-        bscores = torch.round((raw - half_norm1[:, None]) * 4096.0)
-        is_max = bscores == bscores.max(dim=0).values[None, :]
-        bwd.append(torch.where(is_max, ar1, 2**30).min(dim=0).values)
-    bwd_flat = torch.cat(bwd)
+        if bwd:
+            # this block's columns are complete; explicit first index
+            bscores = torch.round((raw - half_norm1[:, None]) * 4096.0)
+            is_max = bscores == bscores.max(dim=0).values[None, :]
+            cols.append(torch.where(is_max, ar1, 2**30).min(dim=0).values)
+    return best_i, (torch.cat(cols) if bwd else None)
+
+
+def global_argmax(d1: torch.Tensor, d2: torch.Tensor,
+                  block: int = 2048) -> torch.Tensor:
+    """Index of the first best frame-2 row for every frame-1 row:
+    (N1, D), (N2, D) bf16 -> (N1,) int32.  The plain version of kernel D
+    (``ops/cuda_match.py``) and of the JAX package's
+    ``global_match_xla`` / ``pallas_match.py::_match_kernel``."""
+    return _score_sweep(d1, d2, block, bwd=False)[0]
+
+
+def global_match(
+    desc1: torch.Tensor, desc2: torch.Tensor, block: int = 2048
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-pixel SSD-argmin target over all of frame 2: (ty, tx) int32
+    absolute target fields for frame 1 (``eppm_tpu/ops/match.py::
+    global_match``).  Kernel D for CUDA tensors at every size, the plain
+    version for CPU tensors."""
+    from .cuda_match import global_argmax_auto
+
+    h, w, d = desc1.shape
+    w2 = desc2.shape[1]
+    best_i = global_argmax_auto(desc1.reshape(h * w, d).contiguous(),
+                                desc2.reshape(-1, d).contiguous(), block)
+    return (best_i // w2).reshape(h, w), (best_i % w2).reshape(h, w)
+
+
+def global_match_bidi(
+    desc1: torch.Tensor, desc2: torch.Tensor, block: int = 2048
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Both directions of the global match from one score sweep
+    (``_score_sweep``): returns (t1y, t1x, t2y, t2x).  The JAX package
+    computes this sweep outside Pallas; so does the port, in float64
+    matrix products."""
+    h, w = desc1.shape[0], desc1.shape[1]
+    h2, w2 = desc2.shape[0], desc2.shape[1]
+    d = desc1.shape[2]
+    fwd, bwd = _score_sweep(desc1.reshape(h * w, d), desc2.reshape(h2 * w2, d),
+                            block, bwd=True)
     return (
-        (best_i // w2).reshape(h, w), (best_i % w2).reshape(h, w),
-        (bwd_flat // w).reshape(h2, w2), (bwd_flat % w).reshape(h2, w2),
+        (fwd // w2).reshape(h, w), (fwd % w2).reshape(h, w),
+        (bwd // w).reshape(h2, w2), (bwd % w).reshape(h2, w2),
     )
 
 
@@ -285,6 +324,77 @@ def _coarse_targets_from_global(p_y, p_x, s: int, h: int, w: int):
     return p_y - ys, p_x - xs
 
 
+def _start_direction(packs_a, packs_b, tiny_targets, match_cfg, cost_cfg,
+                     mini_cost):
+    """(flow, cost) of one direction before the coarse proposals: the
+    descent chain from the tiny-level global targets, or zero flow and its
+    cost where the coarse level has no mini level below it."""
+    if tiny_targets is not None:
+        return _descend_chain(packs_a, packs_b, tiny_targets, match_cfg,
+                              cost_cfg, mini_cost)
+    pack_a, pack_b = packs_a[0], packs_b[0]
+    z = torch.zeros(pack_a.shape[:2], dtype=torch.int32, device=pack_a.device)
+    return _as_flow(z, z), rescore(pack_a, pack_b, z, z, cost_cfg)
+
+
+def _finish_direction(pack_a, pack_b, flow, cost, proposal, s: int,
+                      match_cfg, cost_cfg):
+    """Merge the coarse global proposal (targets on a stride-s grid), if
+    there is one, then polish (``_polish_direction``)."""
+    if proposal is not None:
+        h, w = flow.shape[0], flow.shape[1]
+        pgy, pgx = _coarse_targets_from_global(*proposal, s, h, w)
+        flow, cost = _merge_proposal(pack_a, pack_b, flow, cost, pgy, pgx,
+                                     cost_cfg)
+    return _polish_direction(pack_a, pack_b, flow, cost, match_cfg, cost_cfg)
+
+
+def _no_warm_start(init_flow) -> None:
+    if init_flow is not None:
+        raise NotImplementedError(
+            "init_flow (temporal warm start) is not ported yet: ROADMAP.md, "
+            "Queue 1 item 13"
+        )
+
+
+def match_coarse(
+    img1: torch.Tensor,
+    img2: torch.Tensor,
+    cost_cfg: CostConfig,
+    match_cfg: MatchConfig,
+    pack1=None,
+    pack2=None,
+    init_flow=None,
+):
+    """Coarse-level dense matching, frame 1 -> frame 2: (tx, ty, cost),
+    absolute int32 targets and their cost (``eppm_tpu/ops/match.py::
+    match_coarse`` without the temporal warm start).  Its global matches
+    run through kernel D on the card (``global_match``)."""
+    _no_warm_start(init_flow)
+    h, w = img1.shape[0], img1.shape[1]
+    levels = _mini_levels(h, w, match_cfg)
+    packs1 = _mini_pyramid(img1, levels, pack0=pack1)
+    packs2 = _mini_pyramid(img2, levels, pack0=pack2)
+    tiny = None
+    if levels > 0:
+        tiny = global_match(patch_descriptors(packs1[-1], match_cfg),
+                            patch_descriptors(packs2[-1], match_cfg),
+                            match_cfg.global_block)
+    flow, cost = _start_direction(packs1, packs2, tiny, match_cfg, cost_cfg,
+                                  _make_mini_cost(cost_cfg, match_cfg))
+    proposal, s = None, 1
+    if match_cfg.global_at_coarse:
+        # the argmax costs N1*N2: above the threshold the proposal grid
+        # subsamples by 2 on both frames
+        s = 2 if h * w > match_cfg.global_stride_threshold else 1
+        proposal = global_match(
+            patch_descriptors(packs1[0], match_cfg, stride=s),
+            patch_descriptors(packs2[0], match_cfg, stride=s),
+            match_cfg.global_block)
+    return _finish_direction(packs1[0], packs2[0], flow, cost, proposal, s,
+                             match_cfg, cost_cfg)
+
+
 def match_coarse_bidi(
     img1: torch.Tensor,
     img2: torch.Tensor,
@@ -297,58 +407,41 @@ def match_coarse_bidi(
     """Bidirectional coarse matching: ((tx1, ty1, c1), (tx2, ty2, c2)),
     sharing the mini-pyramids, descriptors and the global score sweep
     between the directions (``eppm_tpu/ops/match.py::match_coarse_bidi``
-    without the temporal warm start)."""
-    if init_flow is not None:
-        raise NotImplementedError(
-            "init_flow (temporal warm start) is not ported yet: ROADMAP.md, "
-            "Queue 1 item 13"
-        )
+    without the temporal warm start).  For frames of one size each
+    direction equals a ``match_coarse`` call."""
+    _no_warm_start(init_flow)
     h, w = img1.shape[0], img1.shape[1]
     h2, w2 = img2.shape[0], img2.shape[1]
-    dev = img1.device
     levels = min(_mini_levels(h, w, match_cfg),
                  _mini_levels(h2, w2, match_cfg))
     packs1 = _mini_pyramid(img1, levels, pack0=pack1)
     packs2 = _mini_pyramid(img2, levels, pack0=pack2)
-    pack1, pack2 = packs1[0], packs2[0]
     mini_cost = _make_mini_cost(cost_cfg, match_cfg)
 
+    tiny_f = tiny_b = None
     if levels > 0:
-        d1 = patch_descriptors(packs1[-1], match_cfg)
-        d2 = patch_descriptors(packs2[-1], match_cfg)
-        t1y, t1x, t2y, t2x = global_match_bidi(d1, d2, match_cfg.global_block)
-        flow_f, cost_f = _descend_chain(
-            packs1, packs2, (t1y, t1x), match_cfg, cost_cfg, mini_cost
-        )
-        flow_b, cost_b = _descend_chain(
-            packs2, packs1, (t2y, t2x), match_cfg, cost_cfg, mini_cost
-        )
-    else:
-        flow_f = torch.zeros((h, w, 2), dtype=torch.float32, device=dev)
-        flow_b = torch.zeros((h2, w2, 2), dtype=torch.float32, device=dev)
-        z1 = torch.zeros((h, w), dtype=torch.int32, device=dev)
-        z2 = torch.zeros((h2, w2), dtype=torch.int32, device=dev)
-        cost_f = rescore(pack1, pack2, z1, z1, cost_cfg)
-        cost_b = rescore(pack2, pack1, z2, z2, cost_cfg)
+        t1y, t1x, t2y, t2x = global_match_bidi(
+            patch_descriptors(packs1[-1], match_cfg),
+            patch_descriptors(packs2[-1], match_cfg), match_cfg.global_block)
+        tiny_f, tiny_b = (t1y, t1x), (t2y, t2x)
+    flow_f, cost_f = _start_direction(packs1, packs2, tiny_f, match_cfg,
+                                      cost_cfg, mini_cost)
+    flow_b, cost_b = _start_direction(packs2, packs1, tiny_b, match_cfg,
+                                      cost_cfg, mini_cost)
 
+    prop_f = prop_b = None
+    s = 1
     if match_cfg.global_at_coarse:
-        # the argmax costs N1*N2: above the threshold the proposal grid
-        # subsamples by 2 on both frames
         s = 2 if max(h * w, h2 * w2) > match_cfg.global_stride_threshold else 1
-        dc1 = patch_descriptors(pack1, match_cfg, stride=s)
-        dc2 = patch_descriptors(pack2, match_cfg, stride=s)
-        p1y, p1x, p2y, p2x = global_match_bidi(dc1, dc2, match_cfg.global_block)
-        pgy, pgx = _coarse_targets_from_global(p1y, p1x, s, h, w)
-        flow_f, cost_f = _merge_proposal(
-            pack1, pack2, flow_f, cost_f, pgy, pgx, cost_cfg
-        )
-        pgy, pgx = _coarse_targets_from_global(p2y, p2x, s, h2, w2)
-        flow_b, cost_b = _merge_proposal(
-            pack2, pack1, flow_b, cost_b, pgy, pgx, cost_cfg
-        )
-
-    fwd = _polish_direction(pack1, pack2, flow_f, cost_f, match_cfg, cost_cfg)
-    bwd = _polish_direction(pack2, pack1, flow_b, cost_b, match_cfg, cost_cfg)
+        p1y, p1x, p2y, p2x = global_match_bidi(
+            patch_descriptors(packs1[0], match_cfg, stride=s),
+            patch_descriptors(packs2[0], match_cfg, stride=s),
+            match_cfg.global_block)
+        prop_f, prop_b = (p1y, p1x), (p2y, p2x)
+    fwd = _finish_direction(packs1[0], packs2[0], flow_f, cost_f, prop_f, s,
+                            match_cfg, cost_cfg)
+    bwd = _finish_direction(packs2[0], packs1[0], flow_b, cost_b, prop_b, s,
+                            match_cfg, cost_cfg)
     return fwd, bwd
 
 
@@ -382,8 +475,8 @@ def _polish_direction(pack1, pack2, flow, cost, match_cfg: MatchConfig,
         """Exact quantized cost of K offset fields (K, H, W)."""
         ctxs = xs[None] + cgxs
         ctys = ys[None] + cgys
-        ck = patch_cost_stack(pack1, stack2, ctxs, ctys, exact_cfg, offs2)
-        ck = torch.round(ck * 131072.0) * (1.0 / 131072.0)
+        ck = quantize_cost(
+            patch_cost_stack(pack1, stack2, ctxs, ctys, exact_cfg, offs2))
         if mask_oob:
             inb = (ctxs >= 0) & (ctxs < w2) & (ctys >= 0) & (ctys < h2)
             ck = torch.where(inb, ck, FLT_MAX)

@@ -1,7 +1,8 @@
-"""Flow refinement chain, main-path subset (counterpart of
-``eppm_tpu/ops/refine.py``): left-right check, outlier removal, hole
-filling, NNF<->flow conversion, and the plain PyTorch versions of kernel
-B (``flow_smoothing``) and kernel C (``weighted_median_filter``).
+"""Flow refinement chain (counterpart of ``eppm_tpu/ops/refine.py``):
+left-right check, outlier removal, hole filling, NNF<->flow conversion,
+the gathered plane-fitting re-search (``blf_refine_flow``,
+``refine_impl="gather"``), and the plain PyTorch versions of kernel B
+(``flow_smoothing``) and kernel C (``weighted_median_filter``).
 
 Conventions (identical to the reference, bao_pmflow_refine_kernel.cu):
   - NNF = absolute int32 target coordinates (tx, ty); INVALID_LOCATION
@@ -23,9 +24,11 @@ from ..config import (
     INVALID_LOCATION,
     UNKNOWN_FLOW,
     UNKNOWN_FLOW_THRESH,
+    CostConfig,
     RefineConfig,
 )
 from ._util import exp_cephes, fma32, ftz, grid, inv32, pad_edge
+from .cost import patch_cost_planefitting
 
 __all__ = [
     "lr_check",
@@ -35,6 +38,7 @@ __all__ = [
     "nnf_to_flow",
     "flow_to_nnf",
     "flow_smoothing",
+    "blf_refine_flow",
 ]
 
 # Taps per partial sum of the smoothing and supports per partial sum of
@@ -435,3 +439,37 @@ def flow_smoothing(flow, img, cfg: RefineConfig = RefineConfig()):
         wsum = wsum + part_w
     out = fsum / wsum.clamp_min(1e-30)[..., None]
     return torch.where((wsum > 0)[..., None], out, flow)
+
+
+def blf_refine_flow(flow, pack1, pack2, cost_cfg: CostConfig):
+    """3x3 re-search with the gathered plane-fitting cost around
+    trunc(flow) (d_bilateral_refine_flow_planefitting,
+    bao_pmflow_kernel.cu:2005-2041; ``eppm_tpu/ops/refine.py::
+    blf_refine_flow`` on one device).  Candidates whose target leaves
+    frame 2 are skipped; the centre starts at the sentinel cost 999999
+    (:2020-2023) and a candidate wins on a strictly lower cost; unknown
+    flow resets to 0."""
+    h, w = flow.shape[:2]
+    h2, w2 = pack2.shape[0], pack2.shape[1]
+    ys, xs = grid(h, w, flow.device)
+    u, v = flow[..., 0], flow[..., 1]
+    unknown = (u > UNKNOWN_FLOW_THRESH) | (v > UNKNOWN_FLOW_THRESH)
+    cx = torch.where(unknown, 0.0, u).trunc().to(torch.int32) + xs
+    cy = torch.where(unknown, 0.0, v).trunc().to(torch.int32) + ys
+    best_cost = torch.full((h, w), 999999.0, dtype=torch.float32,
+                           device=flow.device)
+    best_tx, best_ty = cx, cy
+    for m in (-1, 0, 1):
+        for n in (-1, 0, 1):
+            # the reference's loop order: m steps x, n steps y
+            tx, ty = cx + m, cy + n
+            inb = (tx >= 0) & (tx < w2) & (ty >= 0) & (ty < h2)
+            tx, ty = tx.clamp(0, w2 - 1), ty.clamp(0, h2 - 1)
+            cost = patch_cost_planefitting(pack1, pack2, tx, ty, cost_cfg)
+            better = torch.where(inb, cost, FLT_MAX) < best_cost
+            best_cost = torch.where(better, cost, best_cost)
+            best_tx = torch.where(better, tx, best_tx)
+            best_ty = torch.where(better, ty, best_ty)
+    out = torch.stack([(best_tx - xs).to(torch.float32),
+                       (best_ty - ys).to(torch.float32)], dim=-1)
+    return torch.where(unknown[..., None], 0.0, out)

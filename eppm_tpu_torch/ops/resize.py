@@ -23,13 +23,22 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ._util import fma32, pad_edge
+from ._util import fma32, inv32, pad_edge
 
 __all__ = ["gaussian_filter", "bilinear_resize", "gaussian_pyramid"]
 
 
-def gaussian_filter(img: torch.Tensor, sigma: float, radius: int) -> torch.Tensor:
-    """Gaussian blur with edge-replicated taps (bao_basic_cuda.cuh:397-417)."""
+def gaussian_filter(
+    img: torch.Tensor, sigma: float, radius: int, raw_u8=None
+) -> torch.Tensor:
+    """Gaussian blur with edge-replicated taps (bao_basic_cuda.cuh:397-417).
+
+    ``raw_u8`` is the uint8 frame that ``img`` was normalized from
+    (img = float(raw_u8) * f32(1/255)).  The JAX program reads the centre
+    tap of its first (vertical) pass from the raw frame, with 1/255 folded
+    into the tap weight: float(raw_u8) * f32(w_c * f32(1/255)), the other
+    taps from ``img`` (XLA's optimized HLO of the pre-smoothing); passing
+    the raw frame reproduces that rounding."""
     if radius <= 0:
         return img
     k = np.arange(-radius, radius + 1, dtype=np.float64)
@@ -39,11 +48,15 @@ def gaussian_filter(img: torch.Tensor, sigma: float, radius: int) -> torch.Tenso
         padded = pad_edge(img, radius if axis == 0 else 0,
                           radius if axis == 1 else 0)
         taps = [padded.narrow(axis, i, img.shape[axis]) for i in range(len(w))]
+        ws = [float(wi) for wi in w]
+        if raw_u8 is not None and axis == 0:
+            taps[radius] = raw_u8.to(torch.float32)
+            ws[radius] = float(w[radius] * np.float32(inv32(255.0)))
         # the multiply-adds fuse as XLA's CPU backend fuses them:
         # fma(t0, w0, t1*w1), then fma(t_i, w_i, acc)
-        acc = fma32(taps[0], float(w[0]), taps[1] * float(w[1]))
-        for t, wi in zip(taps[2:], w[2:]):
-            acc = fma32(t, float(wi), acc)
+        acc = fma32(taps[0], ws[0], taps[1] * ws[1])
+        for t, wi in zip(taps[2:], ws[2:]):
+            acc = fma32(t, wi, acc)
         img = acc
     return img
 

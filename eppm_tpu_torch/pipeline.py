@@ -8,9 +8,11 @@ bao_flow_patchmatch_multiscale_cuda.cpp:217-315):
     transform and pack per level
   coarsest level: bidirectional dense matching -> left-right check ->
     outlier removal -> occlusion reconstruction (fill-first) -> flow
-  each finer level: bilinear upsample x2 -> dense refine pass 1 (kernel A)
-    -> 3x3 median -> dense refine pass 2 (kernel A) -> flow smoothing
-    (kernel B)
+  each finer level: bilinear upsample x2 -> dense refine pass 1 (kernel A;
+    its plane mode with ``dense_pass1_planes``) -> 3x3 median -> dense
+    refine pass 2 (kernel A; plane mode with ``dense_pass2_planes``), or,
+    with ``refine_impl="gather"``, the gathered plane-fitting re-search
+    (plain torch) -> flow smoothing (kernel B)
   level 0: one more flow smoothing
 
 PyTorch runs eagerly on the device of the input tensors: CUDA tensors
@@ -34,7 +36,8 @@ from .ops.cuda_smooth import flow_smoothing_auto
 from .ops.dense import dense_refine_flow, median3_flow
 from .ops.match import match_coarse_bidi
 from .ops.occlusion import coarse_occlusion_reconstruct
-from .ops.refine import lr_check, nnf_to_flow, outlier_removal
+from .ops.refine import (blf_refine_flow, lr_check, nnf_to_flow,
+                          outlier_removal)
 from .ops.resize import bilinear_resize, gaussian_filter, gaussian_pyramid
 
 __all__ = ["prepare_pyramids", "compute_flow", "EPPMFlow", "check_supported"]
@@ -52,11 +55,13 @@ def prepare_pyramids(
 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """Pre-smooth, build the Gaussian pyramid, census-transform and pack
     each level (refine_kernel.cu:1059-1071) -> (image levels, packs)."""
+    raw_u8 = img if img.dtype == torch.uint8 else None
     img = _normalize(img)
     h, w = img.shape[0], img.shape[1]
     dims = cfg.pyramid.level_dims(h, w)
     smoothed = gaussian_filter(
-        img, cfg.pyramid.presmooth_sigma, cfg.pyramid.presmooth_radius
+        img, cfg.pyramid.presmooth_sigma, cfg.pyramid.presmooth_radius,
+        raw_u8=raw_u8,
     )
     levels = gaussian_pyramid(smoothed, dims, cfg.pyramid.ratio)
     packs = [pack_frame(lv, census_transform(lv)) for lv in levels]
@@ -67,13 +72,8 @@ def prepare_pyramids(
 _NOT_PORTED = (
     (lambda c: c.match_engine != "dense", "match_engine",
      "Queue 1 item 14 (the PatchMatch engine)"),
-    (lambda c: c.refine_impl != "dense", "refine_impl",
-     "Queue 1 item 13 (refine_impl='gather')"),
     (lambda c: not c.refine.wmf_fill_first, "refine.wmf_fill_first",
      "Queue 1 item 13 (legacy WMF order)"),
-    (lambda c: c.dense_pass1_planes or c.dense_pass2_planes,
-     "dense_pass1_planes/dense_pass2_planes",
-     "Queue 2 item 5 (plane-hypothesis cost kernel)"),
     (lambda c: c.subpixel_refine or c.dense_subpixel_fit,
      "subpixel_refine/dense_subpixel_fit", "Queue 1 item 13 (subpixel)"),
 )
@@ -136,15 +136,21 @@ def compute_flow(
     for lvl in range(top - 1, -1, -1):
         oh, ow = packs1[lvl].shape[0], packs1[lvl].shape[1]
         flow = bilinear_resize(flow, oh, ow, ratio_up) * ratio_up
-        flow = dense_refine_flow(
-            flow, packs1[lvl], packs2[lvl], cfg.cost,
-            cfg.dense_search_radius, cfg.dense_cand_shape, cfg.warp_dtype,
-        )
-        for _ in range(cfg.dense_refine_passes - 1):
+        if cfg.refine_impl == "dense":
             flow = dense_refine_flow(
-                median3_flow(flow), packs1[lvl], packs2[lvl], cfg.pass2_cost,
-                cfg.dense_search_radius, cfg.pass2_cand_shape, cfg.warp_dtype,
+                flow, packs1[lvl], packs2[lvl], cfg.cost,
+                cfg.dense_search_radius, cfg.dense_cand_shape,
+                cfg.warp_dtype, cfg.dense_pass1_planes,
             )
+            for _ in range(cfg.dense_refine_passes - 1):
+                flow = dense_refine_flow(
+                    median3_flow(flow), packs1[lvl], packs2[lvl],
+                    cfg.pass2_cost, cfg.dense_search_radius,
+                    cfg.pass2_cand_shape, cfg.warp_dtype,
+                    cfg.dense_pass2_planes,
+                )
+        else:
+            flow = blf_refine_flow(flow, packs1[lvl], packs2[lvl], cfg.cost)
         flow = flow_smoothing_auto(flow, levels1[lvl], cfg.refine)
     return flow_smoothing_auto(flow, levels1[0], cfg.refine)
 

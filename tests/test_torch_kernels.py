@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (A: residual cost, B: flow smoothing, C:
-weighted median) and their dispatch.
+"""The port's CUDA kernels (A: residual cost, with its plane mode; B: flow
+smoothing; C: weighted median; D: global descriptor argmax) and their
+dispatch.
 
 Tests marked ``gpu`` build the kernels with nvcc and run them against
 their plain PyTorch versions on the card (run them on a GPU host, which
@@ -9,6 +10,7 @@ version only for CPU tensors, a kernel wrapper given anything else
 raises, and the main path hands each kernel arguments it accepts."""
 
 import collections
+import dataclasses
 
 import numpy as np
 import pytest
@@ -17,8 +19,8 @@ import torch
 from eppm_tpu_torch import pipeline
 from eppm_tpu_torch.config import DEFAULT_CONFIG as CFG
 from eppm_tpu_torch.config import INVALID_LOCATION, UNKNOWN_FLOW
-from eppm_tpu_torch.ops import _build, cuda_cost, cuda_smooth, cuda_wmf
-from eppm_tpu_torch.ops import match, occlusion
+from eppm_tpu_torch.ops import _build, cuda_cost, cuda_match, cuda_smooth
+from eppm_tpu_torch.ops import cuda_wmf, match, occlusion
 from eppm_tpu_torch.ops.census import census_transform
 from eppm_tpu_torch.ops.cost import pack_frame
 from eppm_tpu_torch.ops.dense import center_out_offsets
@@ -62,9 +64,21 @@ def _wmf_inputs(h, w, seed=0, device="cpu"):
             torch.from_numpy(img).to(device))
 
 
-def _counts():
-    return (cuda_cost.SINGLE.launches, cuda_cost.MULTIWARP.launches,
-            cuda_smooth.KERNEL.launches, cuda_wmf.KERNEL.launches)
+def _descriptors(n1, n2, d=275, seed=0, device="cpu"):
+    """(N1, D), (N2, D) bf16 rows; D = 275 as at the defaults (not a
+    multiple of 8)."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(0, 0.3, (n, d)).astype(np.float32))
+            .to(torch.bfloat16).to(device) for n in (n1, n2)]
+
+
+# the kernels that the default path launches
+DEFAULT_PATH = (cuda_cost.SINGLE, cuda_cost.MULTIWARP, cuda_smooth.KERNEL,
+                cuda_wmf.KERNEL)
+
+
+def _counts(kernels=DEFAULT_PATH + (cuda_cost.PLANES, cuda_match.KERNEL)):
+    return tuple(k.launches for k in kernels)
 
 
 # --- anywhere -------------------------------------------------------------
@@ -74,8 +88,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     (img, p1), (_, p2) = _packs(8, 12)
     flow = torch.zeros((8, 12, 2))
     tx, ty, wimg = _wmf_inputs(8, 12)
+    d1, d2 = _descriptors(5, 7)
     calls = [
         lambda: cuda_cost.residual_costs_cuda(p1, p2, [(0, 0)], CFG.cost),
+        lambda: cuda_cost.residual_costs_planes_cuda(p1, p2, [(0, 0)],
+                                                     CFG.cost),
+        lambda: cuda_match.global_argmax_cuda(d1, d2),
         lambda: cuda_cost.residual_costs_multiwarp_cuda(p1, p2[None],
                                                         CFG.cost),
         lambda: cuda_smooth.flow_smoothing_cuda(flow, img, CFG.refine),
@@ -93,8 +111,11 @@ def test_dispatchers_take_plain_versions_on_cpu_only():
     (img, p1), (_, p2) = _packs(8, 12)
     flow = torch.zeros((8, 12, 2))
     tx, ty, wimg = _wmf_inputs(8, 12)
+    d1, d2 = _descriptors(5, 7)
     before = _counts()
     cuda_cost.residual_costs_auto(p1, p2, [(0, 0)], CFG.cost)
+    cuda_cost.residual_costs_auto(p1, p2, [(0, 0)], CFG.cost, use_planes=True)
+    cuda_match.global_argmax_auto(d1, d2)
     cuda_cost.residual_costs_multiwarp_auto(p1, p2[None], CFG.cost)
     cuda_smooth.flow_smoothing_auto(flow, img, CFG.refine)
     cuda_wmf.weighted_median_filter_auto(tx, ty, wimg, CFG.refine)
@@ -105,6 +126,8 @@ def test_dispatchers_take_plain_versions_on_cpu_only():
     with pytest.raises(ValueError, match="unsupported device"):
         cuda_smooth.flow_smoothing_auto(meta[..., :2], meta[..., :3],
                                         CFG.refine)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_match.global_argmax_auto(meta[0].bfloat16(), meta[0].bfloat16())
 
 
 def test_argument_checks_reject_what_the_kernels_do_not_take():
@@ -122,6 +145,21 @@ def test_argument_checks_reject_what_the_kernels_do_not_take():
                                   CFG.cost)
     with pytest.raises(ValueError, match="candidates"):
         cuda_cost.check_cost_args(p1, p2, 1, [(0, 0, 0)] * 129, CFG.cost)
+    planes = cuda_cost.cost_tables(CFG.cost, True)
+    cuda_cost.check_cost_args(p1, p2, 1, cands, CFG.cost, planes)
+    with pytest.raises(ValueError, match="tables"):
+        cuda_cost.check_cost_args(p1, p2, 1, cands, CFG.cost, planes * 2)
+    with pytest.raises(ValueError, match="tables"):
+        cuda_cost.check_cost_args(p1, p2, 1, cands, CFG.cost,
+                                  [planes[1][:-1]])
+    d1, d2 = _descriptors(5, 7)
+    cuda_match.check_argmax_args(d1, d2)
+    with pytest.raises(ValueError, match="bfloat16"):
+        cuda_match.check_argmax_args(d1.float(), d2)
+    with pytest.raises(ValueError, match="shape"):
+        cuda_match.check_argmax_args(d1, d2[:, :-1])
+    with pytest.raises(ValueError, match="features"):
+        cuda_match.check_argmax_args(*_descriptors(2, 3, d=769))
     with pytest.raises(ValueError, match="shape"):
         cuda_smooth.check_smooth_args(torch.zeros((8, 12, 3)), img,
                                       CFG.refine)
@@ -145,9 +183,9 @@ def test_main_path_hands_kernels_arguments_they_take(monkeypatch):
 
         monkeypatch.setattr(mod, name, checked)
 
-    def single(p1, w2, cands, cfg):
+    def single(p1, w2, cands, cfg, use_planes=False):
         cuda_cost.check_cost_args(p1, w2, 1, [(a, b, 0) for a, b in cands],
-                                  cfg)
+                                  cfg, cuda_cost.cost_tables(cfg, use_planes))
 
     def multi(p1, stack, cfg):
         k = stack.shape[0]
@@ -172,6 +210,42 @@ def test_main_path_hands_kernels_arguments_they_take(monkeypatch):
                          "flow_smoothing_auto", "weighted_median_filter_auto"}
 
 
+def test_plane_and_match_paths_hand_kernels_arguments_they_take(
+        monkeypatch):
+    """The plane-mode refine passes and the single-direction matcher on
+    the CPU, with kernel A's and kernel D's dispatchers wrapped in their
+    argument checks."""
+    seen = collections.Counter()
+    orig_cost = cuda_cost.residual_costs_auto
+    orig_argmax = cuda_match.global_argmax_auto
+
+    def cost(p1, w2, cands, cfg, use_planes=False):
+        cuda_cost.check_cost_args(p1, w2, 1, [(a, b, 0) for a, b in cands],
+                                  cfg, cuda_cost.cost_tables(cfg, use_planes))
+        seen["planes" if use_planes else "fronto"] += 1
+        return orig_cost(p1, w2, cands, cfg, use_planes)
+
+    def argmax(d1, d2, block=2048):
+        cuda_match.check_argmax_args(d1, d2)
+        seen["argmax"] += 1
+        return orig_argmax(d1, d2, block)
+
+    for mod in (cuda_cost, match):
+        monkeypatch.setattr(mod, "residual_costs_auto", cost)
+    monkeypatch.setattr(cuda_match, "global_argmax_auto", argmax)
+    rng = np.random.default_rng(1)
+    img1 = torch.from_numpy((rng.random((48, 64, 3)) * 255).astype(np.uint8))
+    img2 = torch.roll(img1, (1, -2), (0, 1))
+    cfg = dataclasses.replace(CFG, dense_pass1_planes=True,
+                              dense_pass2_planes=True)
+    assert tuple(pipeline.compute_flow(img1, img2, cfg).shape) == (48, 64, 2)
+    assert seen["planes"] > 0
+    lv1, pk1 = pipeline.prepare_pyramids(img1, CFG)
+    lv2, pk2 = pipeline.prepare_pyramids(img2, CFG)
+    match.match_coarse(lv1[0], lv2[0], CFG.cost, CFG.match, pk1[0], pk2[0])
+    assert seen["argmax"] == 2  # the tiny level and the coarse proposals
+
+
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -180,6 +254,27 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     assert _build.library_path().name.startswith("libeppm_kernels-")
     assert "--fmad=false" in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_build_compiles_each_source_and_raises_on_a_failed_one(
+        monkeypatch, tmp_path):
+    """One nvcc per source with the compile flags; a failed compile
+    raises with its output, links nothing and leaves no library."""
+    calls = tmp_path / "calls"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(f'#!/bin/sh\necho "$@" >> {calls}\n'
+                    'case "$*" in *match.cu*) echo "error: broken"; exit 1;; '
+                    'esac\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="broken"):
+        _build.build_library()
+    lines = [c.split() for c in calls.read_text().splitlines()]
+    srcs = sorted(p.name for p in _build.CSRC_DIR.glob("*.cu"))
+    assert sorted(c[-1].rsplit("/", 1)[-1] for c in lines) == srcs
+    assert all("-c" in c and "--fmad=false" in c for c in lines)
+    assert not list((tmp_path / "build").rglob("*.so"))
 
 
 # --- on the card ----------------------------------------------------------
@@ -208,6 +303,41 @@ def test_kernel_a_multiwarp_matches_plain(cuda):
     assert cuda_cost.MULTIWARP.launches == n + 1
     want = cuda_cost.residual_costs_multiwarp(p1, stack, CFG.cost)
     assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg_name", ["cost", "pass2", "stride2"])
+def test_kernel_a_planes_matches_plain(cuda, cfg_name):
+    cfg = {"cost": CFG.cost, "pass2": CFG.pass2_cost,
+           "stride2": dataclasses.replace(CFG.cost, patch_stride=2)}[cfg_name]
+    (_, p1), (_, p2) = _packs(50, 70, device=cuda)
+    cands = center_out_offsets(1)
+    n = cuda_cost.PLANES.launches
+    got = cuda_cost.residual_costs_auto(p1, p2, cands, cfg, use_planes=True)
+    assert cuda_cost.PLANES.launches == n + 1
+    want = cuda_cost.residual_costs(p1, p2, cands, cfg, use_planes=True)
+    assert float((got - want).abs().max()) <= 1e-4
+    # the plane tables of one launch stay in place for the next
+    fronto = cuda_cost.residual_costs_auto(p1, p2, cands, cfg)
+    again = cuda_cost.residual_costs_auto(p1, p2, cands, cfg, use_planes=True)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got) and bool((got <= fronto).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n1,n2", [(300, 1000), (129, 31), (1, 33)])
+def test_kernel_d_matches_plain(cuda, n1, n2):
+    """D = 275 (not a multiple of 8), N2 not a multiple of the 32-row
+    tile, and an exact score tie across tiles: the first maximum wins."""
+    d1, d2 = _descriptors(n1, n2, device=cuda)
+    d2[n2 - 1] = d2[n2 // 3]  # two equal targets for frame-1 row 0
+    d1[0] = d2[n2 // 3]
+    n = cuda_match.KERNEL.launches
+    got = cuda_match.global_argmax_auto(d1, d2)
+    assert cuda_match.KERNEL.launches == n + 1
+    want = cuda_match.global_argmax(d1, d2, 16)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert int(got[0]) == n2 // 3
 
 
 @pytest.mark.gpu
@@ -245,9 +375,9 @@ def test_slice_on_the_card_matches_the_cpu(cuda):
     rng = np.random.default_rng(2)
     img1 = torch.from_numpy((rng.random((96, 128, 3)) * 255).astype(np.uint8))
     img2 = torch.roll(img1, (2, -3), (0, 1))
-    before = _counts()
+    before = _counts(DEFAULT_PATH)
     gpu = pipeline.compute_flow(img1.to(cuda), img2.to(cuda)).cpu().numpy()
-    assert all(a > b for a, b in zip(_counts(), before))
+    assert all(a > b for a, b in zip(_counts(DEFAULT_PATH), before))
     cpu = pipeline.compute_flow(img1, img2).numpy()
     d = np.abs(gpu - cpu).max(axis=-1)
     assert (d < 1e-3).mean() >= 0.98 and d.mean() < 0.05

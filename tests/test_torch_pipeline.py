@@ -4,9 +4,8 @@ mini-pyramid level below it), plus the port's entry points on the CPU.
 
 Contract (the repo's cross-program one, tests/test_sharded.py): at least
 98% of pixels agree to 1e-3 and the mean |difference| is below 0.05.  The
-frames are float32 in [0, 1]: for uint8 frames the JAX program folds the
-1/255 scale into one tap of its pre-smoothing filter, a last-bit
-difference the pipeline's argmins then amplify."""
+frames here are float32 in [0, 1]; tests/test_torch_uint8*.py hold uint8
+frames to the same contract."""
 
 import dataclasses
 import json
@@ -28,9 +27,9 @@ from eppm_tpu_torch.pipeline import EPPMFlow, compute_flow
 torch.set_num_threads(1)
 
 
-def shifted_pair(h, w, dx, dy, seed):
-    """float32 frames with frame1(p) = frame2(p + (dx, dy)), from a smooth
-    seeded texture quantized to 8 bits."""
+def shifted_pair(h, w, dx, dy, seed, uint8=False):
+    """float32 frames (uint8 with ``uint8``) with frame1(p) = frame2(p +
+    (dx, dy)), from a smooth seeded texture quantized to 8 bits."""
     rng = np.random.default_rng(seed)
     m = 8
     small = rng.random((3, (h + 2 * m) // 8 + 2, (w + 2 * m) // 8 + 2))
@@ -40,6 +39,8 @@ def shifted_pair(h, w, dx, dy, seed):
     big = (np.clip(big, 0, 1) * 255).astype(np.uint8)
     f2 = big[m : m + h, m : m + w]
     f1 = big[m + dy : m + dy + h, m + dx : m + dx + w]
+    if uint8:
+        return [np.ascontiguousarray(f) for f in (f1, f2)]
     return [np.ascontiguousarray(f).astype(np.float32) / np.float32(255)
             for f in (f1, f2)]
 
@@ -77,8 +78,9 @@ def test_eppmflow_object_api():
 
 @pytest.mark.parametrize("change", [
     dict(match_engine="patchmatch"),
-    dict(refine_impl="gather"),
-    dict(dense_pass1_planes=True),
+    dict(dense_subpixel_fit=True),
+    dict(refine=dataclasses.replace(DEFAULT_CONFIG.refine,
+                                    wmf_fill_first=False)),
     dict(subpixel_refine=True),
 ])
 def test_settings_off_the_slice_raise(change):
