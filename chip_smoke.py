@@ -13,8 +13,12 @@ final line is not printed):
    shapes the main paths give them (tolerances of ``tools/tpu_check.py``:
    cost max |diff| <= 1e-4 in both modes of kernel A, smoothing <= 1e-3,
    WMF < 0.5% of pixels choosing another target, the global argmax
-   identical indices), with each one's time beside the plain version's
-   (CUDA events, after a warm-up);
+   identical indices; kernel D at N1 = N2 = 1200, 8160 and 129,600), with
+   each one's time beside the plain version's (CUDA events, after a
+   warm-up), its bound (the larger of its operations, counted from its
+   source, over the card's peak and its bytes over the memory rate) and,
+   for kernel D, the float64 matrix products alone as the library
+   yardstick;
 4. end to end, one path after another, each with every launch count set
    to 0 just before it and read just after, and each of its kernels
    launched at least once:
@@ -103,6 +107,43 @@ def cuda_ms(fn, reps: int, warm: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
+# Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet, dense): float32
+# outside the tensor cores, float64 on the tensor cores, device memory.
+F32_FLOPS = 67e12
+F64_TENSOR_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+# float32 operations per unit of work, counted from the kernels' sources:
+# an FMA counts 2; any other arithmetic, min, max or compare 1; abs,
+# negation, conversions and integer index arithmetic 0.  exp_cephes
+# (csrc/common.cuh) is 27 of them.  Against F32_FLOPS, which counts an FMA
+# as 2, this makes the operation bound optimistic: a lower bound.
+COST_TAP_OPS = 112    # csrc/cost.cu: per (candidate, pixel, tap, table)
+SMOOTH_TAP_OPS = 43   # csrc/smooth.cu: per (pixel, in-image known tap)
+WMF_SUPPORT_OPS = 38  # csrc/wmf.cu: per (pixel, in-image support), the weight
+WMF_PAIR_OPS = 5      # csrc/wmf.cu: per (valid candidate, support)
+
+
+def bound(ops: float, peak: float, nbytes: float):
+    """(bound_ms, bound_by): the least time for ``ops`` operations at
+    ``peak`` and for ``nbytes`` (inputs read once, outputs written once)
+    at the memory rate, the larger of the two."""
+    t_ops = ops / peak * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def window_count(mask: torch.Tensor, offsets) -> torch.Tensor:
+    """Per pixel, how many of the (dy, dx) ``offsets`` land on a True of
+    the (H, W) ``mask`` inside the image: int64 (H, W)."""
+    h, w = mask.shape
+    r = max(max(abs(dy), abs(dx)) for dy, dx in offsets)
+    m = torch.nn.functional.pad(mask.to(torch.int64), (r, r, r, r))
+    out = torch.zeros((h, w), dtype=torch.int64, device=mask.device)
+    for dy, dx in offsets:
+        out += m[r + dy : r + dy + h, r + dx : r + dx + w]
+    return out
+
+
 def phase_versions() -> str:
     log("== phase 1: versions")
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
@@ -161,14 +202,22 @@ def phase_kernels(dev) -> dict:
     from eppm_tpu_torch.ops._util import grid
     from eppm_tpu_torch.ops.dense import center_out_offsets, warp_pack
     from eppm_tpu_torch.ops.match import _make_mini_cost, patch_descriptors
-    from eppm_tpu_torch.ops.refine import fill_holes
+    from eppm_tpu_torch.ops.refine import _wmf_tables, fill_holes
 
     rows = {}
 
-    def record(name, err, ms, plain_ms):
+    def record(name, err, ms, plain_ms, bound_ms, bound_by,
+               library_ms=None):
+        """Keep the largest error and the last shape's times."""
         row = rows.setdefault(name, {"max_abs_err": 0.0})
         row["max_abs_err"] = max(row["max_abs_err"], err)
-        row["ms"], row["plain_ms"] = ms, plain_ms
+        row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=library_ms)
+
+    def cost_bound(h, w, k, taps, tables=1, frames=1):
+        # packs and frames read as float4, a float32 cost per candidate
+        return bound(k * h * w * taps * tables * COST_TAP_OPS, F32_FLOPS,
+                     h * w * 16 * (1 + frames) + k * h * w * 4)
 
     mini = _make_mini_cost(cfg.cost, cfg.match)
     # (h, w, candidates, cost config, plane mode) of the main paths: the
@@ -200,35 +249,68 @@ def phase_kernels(dev) -> dict:
         pms = cuda_ms(lambda: cuda_cost.residual_costs(
             p1, warped, cands, ccfg, planes), max(1, reps // 5), warm=False)
         mode = "planes" if planes else "cost  "
+        n_tables = len(cuda_cost.cost_tables(ccfg, planes))
+        bms, by = cost_bound(h, w, len(cands), len(ccfg.tap_offsets),
+                             n_tables)
         log(f"{mode} {h}x{w} K={len(cands)} taps={len(ccfg.tap_offsets)}"
             f"{' x 4 tables' if planes else ''}: max|diff| {err:.3g} "
-            f"({differ:.2%} differ)  kernel {ms:.3f} ms  plain {pms:.3f} ms")
+            f"({differ:.2%} differ)  kernel {ms:.3f} ms  plain {pms:.3f} ms"
+            f"  bound {bms:.3f} ms ({by})")
         check(err <= 1e-4, f"kernel A {mode.strip()} diff {err} > 1e-4")
         record("residual_costs_planes" if planes else "residual_costs",
-               err, ms, pms)
+               err, ms, pms, bms, by)
 
-    # the coarse levels of 1080p (auto depth) and of 4K at depth 3, global
+    # the tiny level of a 640x480 match (30x40 descriptors), and the coarse
+    # levels of 1080p (auto depth) and of 4K at depth 3 with the global
     # proposals on the stride-2 grid: 68x120 and 270x480 descriptors
-    for h, w in [(135, 240), (540, 960)]:
+    block = cfg.match.global_block
+    geo = cuda_match.geometry(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    log(f"argmax kernel: tile {'x'.join(map(str, geo.tile))}, "
+        f"{geo.blocks_per_sm} blocks per SM of {sms}, {geo.registers} "
+        f"registers and {geo.local_bytes} B of local memory (spills) a thread")
+    for h, w, stride in [(30, 40, 1), (135, 240, 2), (540, 960, 2)]:
         (_, p1), (_, p2) = _packs(h, w, 3, -2, SEED + 4, dev)
-        d1, d2 = (patch_descriptors(p, cfg.match, stride=2) for p in (p1, p2))
+        d1, d2 = (patch_descriptors(p, cfg.match, stride=stride)
+                  for p in (p1, p2))
         d = d1.shape[-1]
         a, b = d1.reshape(-1, d).contiguous(), d2.reshape(-1, d).contiguous()
+        n1, n2 = a.shape[0], b.shape[0]
         k = cuda_match.global_argmax_cuda(a, b)
-        ref = cuda_match.global_argmax(a, b, cfg.match.global_block)
+        ref = cuda_match.global_argmax(a, b, block)
         err = float((k - ref).abs().max())
-        big = a.shape[0] > 50_000
+        big = n1 > 50_000
         ms = cuda_ms(lambda: cuda_match.global_argmax_cuda(a, b),
-                     2 if big else 10)
-        pms = cuda_ms(lambda: cuda_match.global_argmax(
-            a, b, cfg.match.global_block), 1 if big else 3, warm=False)
-        tflops = 2.0 * a.shape[0] * b.shape[0] * d / (ms * 1e-3) / 1e12
+                     3 if big else 20)
+        pms = cuda_ms(lambda: cuda_match.global_argmax(a, b, block),
+                      1 if big else 3, warm=False)
+        # the yardstick: the plain sweep's float64 products alone, the
+        # same frame-2 blocks into one preallocated panel, no argmax
+        a64, b64 = a.double(), b.double()
+        panel = torch.empty(n1 * min(block, n2), dtype=torch.float64,
+                            device=dev)
+
+        def products():
+            for j0 in range(0, n2, block):
+                nb = min(block, n2 - j0)
+                torch.mm(a64, b64[j0 : j0 + nb].T,
+                         out=panel[: n1 * nb].view(n1, nb))
+
+        lms = cuda_ms(products, 1 if big else 10)
+        del a64, b64, panel
+        bms, by = bound(2.0 * n1 * n2 * d, F64_TENSOR_FLOPS,
+                        (n1 + n2) * d * 2 + n1 * 4)
+        plan = cuda_match.plan_global_argmax(n1, n2, sms,
+                                             blocks_per_sm=geo.blocks_per_sm)
+        tflops = 2.0 * n1 * n2 * d / (ms * 1e-3) / 1e12
         log(f"argmax {d1.shape[0]}x{d1.shape[1]} descriptors "
-            f"(N1=N2={a.shape[0]}, D={d}): {'identical' if err == 0 else 'DIFFER'}"
-            f" indices  kernel {ms:.3f} ms ({tflops:.2f} float64 TFLOP/s)  "
-            f"plain {pms:.3f} ms")
+            f"(N1=N2={n1}, D={d}, {plan.splits} splits): "
+            f"{'identical' if err == 0 else 'DIFFER'} indices  kernel "
+            f"{ms:.3f} ms ({tflops:.2f} float64 TFLOP/s, {bms / ms:.1%} of "
+            f"the bound)  plain {pms:.3f} ms  float64 products alone "
+            f"{lms:.3f} ms  bound {bms:.3f} ms ({by})")
         check(err == 0, f"kernel D indices differ (max |diff| {err})")
-        record("global_argmax", err, ms, pms)
+        record("global_argmax", err, ms, pms, bms, by, lms)
 
     for h, w in [(120, 160), (135, 240)]:
         (_, p1), (_, p2) = _packs(h, w, 3, -2, SEED + 1, dev)
@@ -248,10 +330,12 @@ def phase_kernels(dev) -> dict:
             p1, stack, cfg.cost), 20)
         pms = cuda_ms(lambda: cuda_cost.residual_costs_multiwarp(
             p1, stack, cfg.cost), 4)
+        bms, by = cost_bound(h, w, 5, len(cfg.cost.tap_offsets), frames=5)
         log(f"cost multiwarp {h}x{w} K=5: max|diff| {err:.3g}  "
-            f"kernel {ms:.3f} ms  plain {pms:.3f} ms")
+            f"kernel {ms:.3f} ms  plain {pms:.3f} ms  bound {bms:.3f} ms "
+            f"({by})")
         check(err <= 1e-4, f"kernel A multiwarp diff {err} > 1e-4")
-        record("residual_costs_multiwarp", err, ms, pms)
+        record("residual_costs_multiwarp", err, ms, pms, bms, by)
 
     for h, w in [(480, 640), (1080, 1920)]:
         (img, _), _ = _packs(h, w, 3, -2, SEED + 2, dev)
@@ -266,10 +350,17 @@ def phase_kernels(dev) -> dict:
             flow, img, cfg.refine), 10)
         pms = cuda_ms(lambda: cuda_smooth.flow_smoothing(
             flow, img, cfg.refine), 2)
+        r = cfg.refine.blf_radius
+        known = (flow[..., 0] <= 1e9) & (flow[..., 1] <= 1e9)
+        taps = window_count(known, [(dy, dx) for dy in range(-r, r + 1)
+                                    for dx in range(-r, r + 1)])
+        # flow and output float2, the image 3 floats
+        bms, by = bound(float(taps.sum()) * SMOOTH_TAP_OPS, F32_FLOPS,
+                        h * w * (8 + 12 + 8))
         log(f"smooth {h}x{w}: max|diff| {err:.3g}  kernel {ms:.3f} ms  "
-            f"plain {pms:.3f} ms")
+            f"plain {pms:.3f} ms  bound {bms:.3f} ms ({by})")
         check(err <= 1e-3, f"kernel B smoothing diff {err} > 1e-3")
-        record("flow_smoothing", err, ms, pms)
+        record("flow_smoothing", err, ms, pms, bms, by)
 
     for h, w in [(120, 160), (135, 240)]:
         (img, _), _ = _packs(h, w, 3, -2, SEED + 3, dev)
@@ -304,7 +395,19 @@ def phase_kernels(dev) -> dict:
                 f"(max {err:.0f} px)  kernel {ms:.3f} ms  plain {pms:.3f} ms")
             check(mismatch < 0.005, f"kernel C mismatch {mismatch:.3%}")
             if label.startswith("polish"):
-                record("weighted_median_filter", err, ms, pms)
+                # one iteration: every in-image support's weight, then
+                # each valid candidate against every support where the
+                # window holds a valid pixel
+                offs = _wmf_tables(cfg.refine, 1)[0]
+                valid = (tx >= 0) & (ty >= 0)
+                inside = window_count(torch.ones_like(valid), offs)
+                cands = window_count(valid, offs)
+                ops = (float(inside.sum()) * WMF_SUPPORT_OPS
+                       + float(cands.sum()) * len(offs) * WMF_PAIR_OPS)
+                # three float planes in and out, the image 3 floats
+                bms, by = bound(ops, F32_FLOPS, h * w * (12 + 12 + 12))
+                log(f"wmf {label} {h}x{w}: bound {bms:.3f} ms ({by})")
+                record("weighted_median_filter", err, ms, pms, bms, by)
             else:
                 rows["weighted_median_filter"]["max_abs_err"] = max(
                     rows["weighted_median_filter"]["max_abs_err"], err)
@@ -370,10 +473,13 @@ def flow_case(model, dev, h, w, dx, dy, seed) -> None:
     img2 = torch.from_numpy(f2).to(dev)
     model(img1, img2)  # first run: allocator and library warm-up
     torch.cuda.synchronize()
+    before = {name: c.launches for name, c in counters().items()}
     t0 = time.perf_counter()
     flow = model(img1, img2)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
+    per_pair = {name: c.launches - before[name]
+                for name, c in counters().items() if c.launches > before[name]}
     check(tuple(flow.shape) == (h, w, 2), f"flow shape {flow.shape}")
     flow = flow.cpu().numpy()
     check(bool(np.isfinite(flow).all()), "non-finite flow")
@@ -384,7 +490,8 @@ def flow_case(model, dev, h, w, dx, dy, seed) -> None:
     epe = interior_epe(flow, dx, dy, 16)
     log(f"e2e {w}x{h} shift ({dx},{dy}) [synthetic]: {ms:.1f} ms  "
         f"warp error {we:.4f} vs zero-flow {we0:.4f} "
-        f"(ratio {we / we0:.3f})  interior EPE {epe:.4f}")
+        f"(ratio {we / we0:.3f})  interior EPE {epe:.4f}  launches per pair "
+        f"{per_pair}")
     check(we < 0.6 * we0, f"warp error {we:.4f} >= 0.6 x {we0:.4f}")
 
 
@@ -529,7 +636,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[path][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -120,7 +120,8 @@ class CudaKernel:
     ``launch`` calls the C function, which launches the kernel on the given
     stream and returns ``cudaGetLastError()``; a non-zero code raises.
     ``launches`` counts successful launches and nothing else, so a run can
-    show that it went through the kernel."""
+    show that it went through the kernel.  ``call`` calls an entry point
+    that launches nothing (a query) and counts nothing."""
 
     def __init__(self, symbol: str, argtypes: Sequence):
         self.symbol = symbol
@@ -136,9 +137,12 @@ class CudaKernel:
             self._fn = fn
         return self._fn
 
-    def launch(self, *args) -> None:
+    def call(self, *args) -> None:
         rc = self._entry()(*args)
         if rc != 0:
             msg = build_library().eppm_error_string(rc).decode()
             raise RuntimeError(f"{self.symbol} failed: CUDA error {rc} ({msg})")
+
+    def launch(self, *args) -> None:
+        self.call(*args)
         self.launches += 1

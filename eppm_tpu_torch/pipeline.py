@@ -23,7 +23,7 @@ around a TPU fault and have no counterpart here.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -98,8 +98,11 @@ def compute_flow(
     init_flow: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Dense flow frame1 -> frame2 for an (H, W, 3) pair (uint8 or float
-    in [0, 1]) -> (H, W, 2) float32 on the frames' device.  The default
-    dense engine makes no random draws, so no generator is taken."""
+    in [0, 1]) -> (H, W, 2) float32.  It runs on the frames' device: CUDA
+    frames launch the kernels, CPU frames take their plain versions
+    (``EPPMFlow`` moves the frames to its device, the card by default).
+    The default dense engine makes no random draws, so no generator is
+    taken."""
     check_supported(cfg)
     if fine_level_wmf:
         raise NotImplementedError(
@@ -160,11 +163,21 @@ class EPPMFlow(nn.Module):
     (bao_flow_patchmatch_multiscale_cuda.h:33-44): ``init(h, w)``,
     ``set_data(img1, img2)``, ``compute_flow()``; ``forward(img1, img2)``
     runs the pipeline directly.  Its state is the config (the system has
-    no learned weights) and the frames of ``set_data``."""
+    no learned weights), its device and the frames of ``set_data``.
 
-    def __init__(self, cfg: EPPMConfig = DEFAULT_CONFIG):
+    It runs on ``device``, the CUDA device by default: ``set_data`` and
+    ``forward`` move the frames there, and the flow comes back there.
+    Without a CUDA device the default raises; ``device="cpu"`` runs the
+    kernels' plain versions."""
+
+    def __init__(self, cfg: EPPMConfig = DEFAULT_CONFIG,
+                 device: Union[str, torch.device] = "cuda"):
         super().__init__()
         check_supported(cfg)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("EPPMFlow runs on the CUDA device and there is "
+                               "none: pass device='cpu' for the CPU")
         self.cfg = cfg
         self._shape: Optional[Tuple[int, int]] = None
         self._img1: Optional[torch.Tensor] = None
@@ -183,7 +196,7 @@ class EPPMFlow(nn.Module):
                 f"frame shape {tuple(img1.shape[:2])}/{tuple(img2.shape[:2])}"
                 f" != init shape {self._shape}"
             )
-        self._img1, self._img2 = img1, img2
+        self._img1, self._img2 = img1.to(self.device), img2.to(self.device)
         return self
 
     def compute_flow(self) -> torch.Tensor:
@@ -192,4 +205,5 @@ class EPPMFlow(nn.Module):
         return compute_flow(self._img1, self._img2, self.cfg)
 
     def forward(self, img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
-        return compute_flow(img1, img2, self.cfg)
+        return compute_flow(img1.to(self.device), img2.to(self.device),
+                            self.cfg)

@@ -25,6 +25,7 @@ from eppm_tpu_torch.ops.census import census_transform
 from eppm_tpu_torch.ops.cost import pack_frame
 from eppm_tpu_torch.ops.dense import center_out_offsets
 from eppm_tpu_torch.ops.refine import fill_holes
+from test_torch_argmax_plan import dark_rows, texture_rows
 
 # The suite runs several test processes per host: one torch thread each
 # keeps them from oversubscribing the cores.
@@ -325,19 +326,55 @@ def test_kernel_a_planes_matches_plain(cuda, cfg_name):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n1,n2", [(300, 1000), (129, 31), (1, 33)])
-def test_kernel_d_matches_plain(cuda, n1, n2):
-    """D = 275 (not a multiple of 8), N2 not a multiple of the 32-row
-    tile, and an exact score tie across tiles: the first maximum wins."""
-    d1, d2 = _descriptors(n1, n2, device=cuda)
-    d2[n2 - 1] = d2[n2 // 3]  # two equal targets for frame-1 row 0
-    d1[0] = d2[n2 // 3]
+@pytest.mark.parametrize("n1,n2,d,splits,tie", [
+    (5, 1000, 275, None, (40, 900)),     # N1 below one 128-row block tile
+    (300, 17, 275, None, (3, 16)),       # N2 below one 64-row tile
+    (129, 1000, 275, 3, (380, 390)),     # a tie across two splits
+    (200, 700, 275, 1, (70, 130)),       # a tie across two tiles
+    (1, 33, 1, None, (0, 30)),           # D = 1: ties everywhere
+    (130, 300, 768, None, (10, 290)),    # D = MAX_D: 24 feature chunks
+    (1000, 1200, 275, None, (600, 1100)),  # N1 != N2, the planner's split
+])
+def test_kernel_d_matches_plain(cuda, n1, n2, d, splits, tie):
+    """Descriptor-like rows (``texture_rows``: the exactness argument
+    needs products whose lowest bit stays within float64's 53 bits of the
+    largest partial sum).  D = 275 is not a multiple of the 32-feature
+    chunk.  Frame-2 rows ``tie`` are equal and frame-1 row 0 is that row:
+    the lower index wins across tiles and across splits."""
+    d1 = texture_rows(n1, 1, d, cuda)
+    d2 = texture_rows(n2, 2, d, cuda)
+    lo, hi = tie
+    d2[hi] = d2[lo]
+    d1[0] = d2[lo]
     n = cuda_match.KERNEL.launches
-    got = cuda_match.global_argmax_auto(d1, d2)
+    got = (cuda_match.global_argmax_auto(d1, d2) if splits is None
+           else cuda_match.global_argmax_cuda(d1, d2, splits))
     assert cuda_match.KERNEL.launches == n + 1
     want = cuda_match.global_argmax(d1, d2, 16)
     assert got.dtype == torch.int32 and torch.equal(got, want)
-    assert int(got[0]) == n2 // 3
+    assert int(got[0]) == lo
+
+
+@pytest.mark.gpu
+def test_kernel_d_matches_plain_on_dark_frames(cuda):
+    """Descriptors of frames with black regions (``dark_rows``), outside
+    the condition under which the float64 sums are exact in any order:
+    the indices are still the plain version's."""
+    d1, d2 = dark_rows(cuda)
+    n = cuda_match.KERNEL.launches
+    got = cuda_match.global_argmax_auto(d1, d2)
+    assert cuda_match.KERNEL.launches == n + 1
+    assert torch.equal(got, cuda_match.global_argmax(d1, d2))
+
+
+@pytest.mark.gpu
+def test_kernel_d_library_geometry_is_the_planners(cuda):
+    """The library reports the planner's tile, a residency of at least one
+    block per SM, and the argmax kernel's registers (at most 128, its
+    launch bound of 2 blocks per SM)."""
+    geo = cuda_match.geometry(cuda)
+    assert geo.tile == (cuda_match.BM, cuda_match.BN, cuda_match.BK)
+    assert geo.blocks_per_sm >= 1 and 0 < geo.registers <= 128
 
 
 @pytest.mark.gpu

@@ -66,14 +66,26 @@ def test_compute_flow_matches_jax_96x160():
 def test_eppmflow_object_api():
     f1, f2 = shifted_pair(48, 64, 2, 1, seed=1)
     a, b = torch.from_numpy(f1), torch.from_numpy(f2)
-    model = EPPMFlow()
+    model = EPPMFlow(device="cpu")
     flow = model.init(48, 64).set_data(a, b).compute_flow()
+    assert flow.device.type == "cpu"
     np.testing.assert_array_equal(flow.numpy(), model(a, b).numpy())
     np.testing.assert_array_equal(flow.numpy(), compute_flow(a, b).numpy())
     with pytest.raises(ValueError):
         model.set_data(a[:24], b[:24])
     with pytest.raises(RuntimeError):
-        EPPMFlow().compute_flow()
+        EPPMFlow(device="cpu").compute_flow()
+
+
+def test_eppmflow_runs_on_the_card_by_default(monkeypatch):
+    """``EPPMFlow()`` takes the CUDA device; without one it raises rather
+    than run the plain versions on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        EPPMFlow()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EPPMFlow(device="cuda:0")
+    assert EPPMFlow(device="cpu").device == torch.device("cpu")
 
 
 @pytest.mark.parametrize("change", [
