@@ -10,18 +10,22 @@ final line is not printed):
 2. build: the CUDA kernels, from ``eppm_tpu_torch/csrc`` (one nvcc per
    source, all started together);
 3. kernels against their plain PyTorch versions, on the card, at the
-   shapes the main paths give them (tolerances of ``tools/tpu_check.py``:
-   cost max |diff| <= 1e-4 in both modes of kernel A, smoothing <= 1e-3,
-   WMF < 0.5% of pixels choosing another target, the global argmax
-   identical indices; kernel D at N1 = N2 = 1200, 8160 and 129,600), with
-   each one's time beside the plain version's (CUDA events, after a
-   warm-up), its bound (the larger of its operations, counted from its
-   source, over the card's peak and its bytes over the memory rate) and,
-   for kernel D, the float64 matrix products alone as the library
+   shapes the main paths give them: kernel A identical (max |diff| 0,
+   no value differs) in its fronto, multiwarp and plane modes, and its
+   terms pass identical to ``cost_terms``; smoothing <= 1e-3 (the
+   tolerance of ``tools/tpu_check.py``); WMF < 0.5% of pixels choosing
+   another target; the global argmax identical indices (kernel D at
+   N1 = N2 = 1200, 8160 and 129,600); with each one's time beside the
+   plain version's (CUDA events, after a warm-up; kernel A's two passes
+   also apart), its bound (the larger of its operations, counted from
+   its source, over the card's peak and its bytes over the memory rate)
+   and, for kernel D, the float64 matrix products alone as the library
    yardstick;
 4. end to end, one path after another, each with every launch count set
    to 0 just before it and read just after, and each of its kernels
-   launched at least once:
+   launched at least once (then, outside the counted run, one 1080p
+   pair of the default path under ``torch.profiler``: each hand
+   kernel's device time and launches per pair):
    - ``EPPMFlow`` under ``DEFAULT_CONFIG``, and with the reference's
      plane-hypothesis re-search in both dense passes
      (``dense_pass1_planes``, ``dense_pass2_planes``), at 640x480 and
@@ -37,8 +41,12 @@ final line is not printed):
      recovered in the interior;
 5. agreement: the port on the card against the port on the CPU (plain
    versions) at 192x256, under ``DEFAULT_CONFIG`` and with both plane
-   flags, at least 98% of pixels within 1e-3 and mean |diff| < 0.05;
-   ``match_coarse`` at 60x80 returns the same targets on both.
+   flags, and under ``DEFAULT_CONFIG`` on a pair with black regions: at
+   least 98% of pixels within 1e-3 and mean |diff| < 0.05;
+   ``match_coarse`` at 60x80 returns the same targets on both, and so
+   does ``global_match_bidi`` on the descriptors of frames with black
+   regions (``eppm_tpu_torch/testing.py::dark_rows``), where the
+   float64 sums are not exact in every order.
 
 The line before the last is one JSON object with a row per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The synthetic pairs are
@@ -80,12 +88,18 @@ def texture(h: int, w: int, seed: int) -> np.ndarray:
     return big.clamp(0, 1)[:, :h, :w].permute(1, 2, 0).numpy()
 
 
-def shifted_pair(h: int, w: int, dx: int, dy: int, seed: int):
+def shifted_pair(h: int, w: int, dx: int, dy: int, seed: int,
+                 dark: bool = False):
     """uint8 (frame1, frame2) with frame1(p) = frame2(p + (dx, dy)): the
     true flow from frame 1 to frame 2 is (dx, dy) wherever p + (dx, dy)
-    lies in the frame."""
+    lies in the frame.  ``dark``: the scene's left third and a band in
+    its lower half are black."""
     m = max(abs(dx), abs(dy)) + 8
     big = (texture(h + 2 * m, w + 2 * m, seed) * 255).astype(np.uint8)
+    if dark:
+        bh, bw = big.shape[0], big.shape[1]
+        big[:, : bw // 3] = 0
+        big[bh // 2 :, bw // 2 : bw // 2 + 20] = 0
     f2 = big[m : m + h, m : m + w]
     f1 = big[m + dy : m + dy + h, m + dx : m + dx + w]
     return np.ascontiguousarray(f1), np.ascontiguousarray(f2)
@@ -117,7 +131,15 @@ HBM_BYTES_PER_S = 3.35e12
 # negation, conversions and integer index arithmetic 0.  exp_cephes
 # (csrc/common.cuh) is 27 of them.  Against F32_FLOPS, which counts an FMA
 # as 2, this makes the operation bound optimistic: a lower bound.
-COST_TAP_OPS = 112    # csrc/cost.cu: per (candidate, pixel, tap, table)
+# Kernel A: the sums pass's dr2, weight exp, flush and two sums per
+# (candidate, pixel, tap, table); dr1 per (pixel, tap); the AD + census
+# term per (map, padded pixel).  COST_TAP_OPS is all of them per
+# (candidate, pixel, tap, table), as a one-pass kernel computes them: the
+# earlier yardstick, logged beside the bound.
+COST_SUM_OPS = 41
+COST_DR1_OPS = 5
+COST_TERM_OPS = 66
+COST_TAP_OPS = COST_TERM_OPS + COST_DR1_OPS + COST_SUM_OPS  # 112
 SMOOTH_TAP_OPS = 43   # csrc/smooth.cu: per (pixel, in-image known tap)
 WMF_SUPPORT_OPS = 38  # csrc/wmf.cu: per (pixel, in-image support), the weight
 WMF_PAIR_OPS = 5      # csrc/wmf.cu: per (valid candidate, support)
@@ -142,6 +164,21 @@ def window_count(mask: torch.Tensor, offsets) -> torch.Tensor:
     for dy, dx in offsets:
         out += m[r + dy : r + dy + h, r + dx : r + dx + w]
     return out
+
+
+def term_pixels(plan, taps, h: int, w: int, dev) -> int:
+    """The padded pixels u = p + d at which some (candidate, table, tap)
+    of the kernel-A ``plan`` reads each map, summed over the maps: the
+    AD + census terms that the cost needs."""
+    r = max(max(abs(dy), abs(dx)) for dy, dx in taps)
+    tap = np.broadcast_to(np.arange(len(taps)), plan.map_of.shape)
+    reads = np.unique(np.stack([plan.map_of.ravel(), tap.ravel()], 1), axis=0)
+    need = torch.zeros((len(plan.maps), h + 2 * r, w + 2 * r),
+                       dtype=torch.bool, device=dev)
+    for m, t in reads:
+        dy, dx = taps[t]
+        need[m, r + dy : r + dy + h, r + dx : r + dx + w] = True
+    return int(need.sum())
 
 
 def phase_versions() -> str:
@@ -214,10 +251,69 @@ def phase_kernels(dev) -> dict:
         row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=bound_by, library_ms=library_ms)
 
-    def cost_bound(h, w, k, taps, tables=1, frames=1):
-        # packs and frames read as float4, a float32 cost per candidate
-        return bound(k * h * w * taps * tables * COST_TAP_OPS, F32_FLOPS,
-                     h * w * 16 * (1 + frames) + k * h * w * 4)
+    def kernel_a(name, label, counter, call, plain, p1, frames, cands,
+                 ccfg, tables, reps):
+        """Kernel A at one shape: the wrapper identical to its plain
+        version and its terms pass identical to ``cost_terms``; the times
+        of the wrapper, of each pass alone and of the plain versions; the
+        bounds of the whole cost and of the terms pass.  Returns the
+        terms pass's (max |diff|, ms, plain ms, bound ms, bound by)."""
+        got = call()
+        ref = plain()
+        err = float((got - ref).abs().max())
+        differ = float((got != ref).float().mean())
+        pms = cuda_ms(plain, max(1, reps // 5), warm=False)
+        taps = list(ccfg.tap_offsets)
+        reach = max(max(abs(a), abs(b)) for a, b in taps)
+        plan = cuda_cost.cost_plan(cands, taps, tables)
+
+        def terms_pass():
+            return cuda_cost.cost_terms_cuda(p1, frames, cands, ccfg, tables)
+
+        terms = terms_pass()
+        tref = cuda_cost.cost_terms(p1, frames, plan.maps, reach, ccfg)
+        terr = float((terms - tref).abs().max())
+        tdiffer = float((terms != tref).float().mean())
+        tpms = cuda_ms(lambda: cuda_cost.cost_terms(
+            p1, frames, plan.maps, reach, ccfg), 1, warm=False)
+        del tref
+        ms = cuda_ms(call, reps)
+        tms = cuda_ms(terms_pass, reps)
+        sums_ms = cuda_ms(lambda: cuda_cost.cost_sums_cuda(
+            counter, p1, frames, terms, cands, ccfg, tables), reps)
+        h, w = p1.shape[0], p1.shape[1]
+        hp, wp = h + 2 * reach, w + 2 * reach
+        n_maps = len(plan.maps)
+        # packs and frames read as float4, a float32 cost per candidate;
+        # the terms pass writes a float32 map per shift
+        frame_bytes = h * w * 16 * (1 + (1 if frames.dim() == 3
+                                         else frames.shape[0]))
+        sums = len(cands) * h * w * len(taps) * len(tables)
+        bms, by = bound(sums * COST_SUM_OPS + h * w * len(taps) * COST_DR1_OPS
+                        + term_pixels(plan, taps, h, w, p1.device)
+                        * COST_TERM_OPS, F32_FLOPS,
+                        frame_bytes + len(cands) * h * w * 4)
+        one_pass_ms = bound(sums * COST_TAP_OPS, F32_FLOPS, 0)[0]
+        tbms, tby = bound(n_maps * hp * wp * COST_TERM_OPS, F32_FLOPS,
+                          frame_bytes + n_maps * hp * wp * 4)
+        log(f"{label}: max|diff| {err:.3g} ({differ:.2%} differ)  kernel "
+            f"{ms:.3f} ms (terms pass {tms:.3f} ms over {n_maps} maps + sums "
+            f"{sums_ms:.3f} ms = {tms + sums_ms:.3f} ms)  plain {pms:.3f} ms"
+            f"  bound {bms:.3f} ms ({by}; {one_pass_ms:.3f} ms at the "
+            f"one-pass count of {COST_TAP_OPS} a tap); terms max|diff| "
+            f"{terr:.3g} "
+            f"({tdiffer:.2%} differ), plain {tpms:.3f} ms, bound "
+            f"{tbms:.3f} ms ({tby})")
+        check(err == 0 and differ == 0,
+              f"kernel A {label}: max|diff| {err}, {differ:.2%} differ")
+        check(terr == 0 and tdiffer == 0, f"kernel A's terms pass {label}: "
+              f"max|diff| {terr}, {tdiffer:.2%} differ")
+        record(name, err, ms, pms, bms, by)
+        return terr, tms, tpms, tbms, tby
+
+    def record_terms_error(terr):
+        row = rows.setdefault("cost_terms", {"max_abs_err": 0.0})
+        row["max_abs_err"] = max(row["max_abs_err"], terr)
 
     mini = _make_mini_cost(cfg.cost, cfg.match)
     # (h, w, candidates, cost config, plane mode) of the main paths: the
@@ -234,31 +330,30 @@ def phase_kernels(dev) -> dict:
         (1080, 1920, center_out_offsets(1), cfg.pass2_cost, True),
         (1080, 1920, center_out_offsets(1), cfg.cost, True),
     ]
-    for h, w, cands, ccfg, planes in cases:
+    for h, w, offsets, ccfg, planes in cases:
         (_, p1), (_, p2) = _packs(h, w, 3, -2, SEED, dev)
         g = torch.full((h, w), 2, dtype=torch.int32, device=dev)
         warped = warp_pack(p2, g + 1, -g)
         kernel = (cuda_cost.residual_costs_planes_cuda if planes
                   else cuda_cost.residual_costs_cuda)
-        k = kernel(p1, warped, cands, ccfg)
-        ref = cuda_cost.residual_costs(p1, warped, cands, ccfg, planes)
-        err = float((k - ref).abs().max())
-        differ = float((k != ref).float().mean())
-        reps = 20 if h * w < 300_000 else 5
-        ms = cuda_ms(lambda: kernel(p1, warped, cands, ccfg), reps)
-        pms = cuda_ms(lambda: cuda_cost.residual_costs(
-            p1, warped, cands, ccfg, planes), max(1, reps // 5), warm=False)
-        mode = "planes" if planes else "cost  "
-        n_tables = len(cuda_cost.cost_tables(ccfg, planes))
-        bms, by = cost_bound(h, w, len(cands), len(ccfg.tap_offsets),
-                             n_tables)
-        log(f"{mode} {h}x{w} K={len(cands)} taps={len(ccfg.tap_offsets)}"
-            f"{' x 4 tables' if planes else ''}: max|diff| {err:.3g} "
-            f"({differ:.2%} differ)  kernel {ms:.3f} ms  plain {pms:.3f} ms"
-            f"  bound {bms:.3f} ms ({by})")
-        check(err <= 1e-4, f"kernel A {mode.strip()} diff {err} > 1e-4")
-        record("residual_costs_planes" if planes else "residual_costs",
-               err, ms, pms, bms, by)
+        label = (f"{'planes' if planes else 'cost  '} {h}x{w} "
+                 f"K={len(offsets)} taps={len(ccfg.tap_offsets)}"
+                 f"{' x 4 tables' if planes else ''}")
+        terms_row = kernel_a(
+            "residual_costs_planes" if planes else "residual_costs", label,
+            cuda_cost.PLANES if planes else cuda_cost.SINGLE,
+            lambda: kernel(p1, warped, offsets, ccfg),
+            lambda: cuda_cost.residual_costs(p1, warped, offsets, ccfg,
+                                             planes),
+            p1, warped, [(cy, cx, 0) for cy, cx in offsets], ccfg,
+            cuda_cost.cost_tables(ccfg, planes),
+            20 if h * w < 300_000 else 5)
+        # the terms pass's row keeps the fronto shapes' times, the last
+        # of which is the default path's largest (1080p, 49 taps)
+        if planes:
+            record_terms_error(terms_row[0])
+        else:
+            record("cost_terms", *terms_row)
 
     # the tiny level of a 640x480 match (30x40 descriptors), and the coarse
     # levels of 1080p (auto depth) and of 4K at depth 3 with the global
@@ -323,19 +418,15 @@ def phase_kernels(dev) -> dict:
         cx = (xs[None] + gxs).clamp(0, w - 1)
         stack = p2.reshape(h * w, 4)[(cy * w + cx).reshape(-1).long()]
         stack = stack.reshape(5, h, w, 4)
-        k = cuda_cost.residual_costs_multiwarp_cuda(p1, stack, cfg.cost)
-        ref = cuda_cost.residual_costs_multiwarp(p1, stack, cfg.cost)
-        err = float((k - ref).abs().max())
-        ms = cuda_ms(lambda: cuda_cost.residual_costs_multiwarp_cuda(
-            p1, stack, cfg.cost), 20)
-        pms = cuda_ms(lambda: cuda_cost.residual_costs_multiwarp(
-            p1, stack, cfg.cost), 4)
-        bms, by = cost_bound(h, w, 5, len(cfg.cost.tap_offsets), frames=5)
-        log(f"cost multiwarp {h}x{w} K=5: max|diff| {err:.3g}  "
-            f"kernel {ms:.3f} ms  plain {pms:.3f} ms  bound {bms:.3f} ms "
-            f"({by})")
-        check(err <= 1e-4, f"kernel A multiwarp diff {err} > 1e-4")
-        record("residual_costs_multiwarp", err, ms, pms, bms, by)
+        terms_row = kernel_a(
+            "residual_costs_multiwarp", f"cost multiwarp {h}x{w} K=5",
+            cuda_cost.MULTIWARP,
+            lambda: cuda_cost.residual_costs_multiwarp_cuda(p1, stack,
+                                                            cfg.cost),
+            lambda: cuda_cost.residual_costs_multiwarp(p1, stack, cfg.cost),
+            p1, stack, [(0, 0, i) for i in range(5)], cfg.cost,
+            cuda_cost.cost_tables(cfg.cost, False), 20)
+        record_terms_error(terms_row[0])
 
     for h, w in [(480, 640), (1080, 1920)]:
         (img, _), _ = _packs(h, w, 3, -2, SEED + 2, dev)
@@ -409,6 +500,24 @@ def phase_kernels(dev) -> dict:
                 log(f"wmf {label} {h}x{w}: bound {bms:.3f} ms ({by})")
                 record("weighted_median_filter", err, ms, pms, bms, by)
             else:
+                # the polish count for each iteration, on the valid mask
+                # that iteration starts from (the plain version, one
+                # iteration at a time)
+                offs = _wmf_tables(cfg.refine, kw["dilation"])[0]
+                inside = window_count(torch.ones_like(holes), offs)
+                ops, itx, ity = 0.0, tx, ty
+                for _ in range(kw["num_iter"]):
+                    valid = (itx >= 0) & (ity >= 0)
+                    ops += (float(inside.sum()) * WMF_SUPPORT_OPS
+                            + float(window_count(valid, offs).sum())
+                            * len(offs) * WMF_PAIR_OPS)
+                    itx, ity = cuda_wmf.weighted_median_filter(
+                        itx, ity, img, cfg.refine, num_iter=1,
+                        only_occlusion=True, dilation=kw["dilation"])
+                check(torch.equal(itx, ref[0]) and torch.equal(ity, ref[1]),
+                      "kernel C: the iterations one at a time differ")
+                bms, by = bound(ops, F32_FLOPS, h * w * (12 + 12 + 12))
+                log(f"wmf {label} {h}x{w}: bound {bms:.3f} ms ({by})")
                 rows["weighted_median_filter"]["max_abs_err"] = max(
                     rows["weighted_median_filter"]["max_abs_err"], err)
     torch.cuda.synchronize()
@@ -438,6 +547,7 @@ def counters() -> dict:
     from eppm_tpu_torch.ops import cuda_wmf
 
     return {
+        "cost_terms": cuda_cost.TERMS,
         "residual_costs": cuda_cost.SINGLE,
         "residual_costs_multiwarp": cuda_cost.MULTIWARP,
         "flow_smoothing": cuda_smooth.KERNEL,
@@ -495,6 +605,59 @@ def flow_case(model, dev, h, w, dx, dy, seed) -> None:
     check(we < 0.6 * we0, f"warp error {we:.4f} >= 0.6 x {we0:.4f}")
 
 
+# the default path's hand kernels by their CUDA names, each with the
+# launch counts (rows of ``counters``) that launch it
+PROFILED = {
+    "cost_terms_kernel": ("cost_terms",),
+    "residual_cost_kernel": ("residual_costs", "residual_costs_multiwarp"),
+    "flow_smooth_kernel": ("flow_smoothing",),
+    "wmf_iter_kernel": ("weighted_median_filter",),
+}
+
+
+def profile_pair(model, dev, h, w, dx, dy, seed) -> None:
+    """One more synthetic pair through ``model`` (after a warm-up run)
+    under ``torch.profiler``, device activity only: each hand kernel's
+    device time and launches beside the device time and count of all the
+    pair's device work, and the wall under the profiler.  The profiler
+    can drop events (a second profiling session in one process lost
+    some on the H100), so the log says whether each kernel's events
+    match its launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    f1, f2 = shifted_pair(h, w, dx, dy, seed)
+    img1, img2 = (torch.from_numpy(f).to(dev) for f in (f1, f2))
+    model(img1, img2)
+    torch.cuda.synchronize()
+    before = {name: c.launches for name, c in counters().items()}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model(img1, img2)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    launched = {name: c.launches - before[name]
+                for name, c in counters().items()}
+    total_us, count, per = 0.0, 0, {name: [0.0, 0] for name in PROFILED}
+    for e in prof.key_averages():
+        if e.self_device_time_total <= 0:
+            continue
+        total_us += e.self_device_time_total
+        count += e.count
+        for name in PROFILED:
+            if name in e.key:
+                per[name][0] += e.self_device_time_total
+                per[name][1] += e.count
+    complete = all(per[name][1] == sum(launched[r] for r in rows)
+                   for name, rows in PROFILED.items())
+    log(f"profile {w}x{h} shift ({dx},{dy}) [synthetic]: wall {wall:.1f} ms "
+        f"under the profiler, {count} device events, device busy "
+        f"{total_us / 1e3:.3f} ms; "
+        + ", ".join(f"{name} {us / 1e3:.3f} ms ({n})"
+                    for name, (us, n) in per.items())
+        + ("; every hand kernel's events match its launches" if complete
+           else "; INCOMPLETE: events and launches differ"))
+
+
 PLANES_CFG = dict(dense_pass1_planes=True, dense_pass2_planes=True)
 
 
@@ -546,7 +709,7 @@ def phase_end_to_end(dev) -> dict:
         (1080, 1920, 5, 3, SEED + 12),
         (1080, 1920, -70, 44, SEED + 13),
     ]
-    default = ["residual_costs", "residual_costs_multiwarp",
+    default = ["cost_terms", "residual_costs", "residual_costs_multiwarp",
                "flow_smoothing", "weighted_median_filter"]
     paths = [  # (path, config, cases, kernels it must launch)
         ("default", cfg, cases, default),
@@ -561,30 +724,36 @@ def phase_end_to_end(dev) -> dict:
         model = EPPMFlow(pcfg)
         launches[path] = drive(path, kernels, lambda: [
             flow_case(model, dev, *case) for case in pcases])
+        if path == "default":
+            profile_pair(model, dev, *cases[2])
     log("-- match_coarse at 4K, depth 3")
     launches["match_coarse"] = drive(
-        "match_coarse", ["residual_costs", "residual_costs_multiwarp",
-                         "global_argmax"], lambda: match_coarse_depth3(dev))
+        "match_coarse", ["cost_terms", "residual_costs",
+                         "residual_costs_multiwarp", "global_argmax"],
+        lambda: match_coarse_depth3(dev))
     return launches
 
 
 def phase_agreement(dev) -> None:
     log("== phase 5: the port on the card against the port on the CPU")
     from eppm_tpu_torch.config import DEFAULT_CONFIG as cfg
-    from eppm_tpu_torch.ops.match import match_coarse
+    from eppm_tpu_torch.ops.match import global_match_bidi, match_coarse
     from eppm_tpu_torch.pipeline import compute_flow
+    from eppm_tpu_torch.testing import dark_rows
 
     h, w = 192, 256
-    f1, f2 = shifted_pair(h, w, 3, -2, SEED + 20)
-    for name, pcfg in [("default", cfg),
-                       ("planes", dataclasses.replace(cfg, **PLANES_CFG))]:
+    for name, pcfg, dark in [
+            ("default", cfg, False),
+            ("planes", dataclasses.replace(cfg, **PLANES_CFG), False),
+            ("default, black regions", cfg, True)]:
+        f1, f2 = shifted_pair(h, w, 3, -2, SEED + 20, dark)
         gpu = compute_flow(torch.from_numpy(f1).to(dev),
                            torch.from_numpy(f2).to(dev), pcfg).cpu().numpy()
         cpu = compute_flow(torch.from_numpy(f1), torch.from_numpy(f2),
                            pcfg).numpy()
         d = np.abs(gpu - cpu).max(axis=-1)
         agree = float((d < 1e-3).mean())
-        log(f"192x256 {name}: {agree:.4%} of pixels agree within 1e-3, "
+        log(f"{h}x{w} {name}: {agree:.4%} of pixels agree within 1e-3, "
             f"mean |diff| {float(d.mean()):.3g}, max {float(d.max()):.3g}")
         check(agree >= 0.98, f"{name}: only {agree:.2%} of pixels agree")
         check(float(d.mean()) < 0.05, f"{name}: mean |diff| {float(d.mean())}")
@@ -598,8 +767,24 @@ def phase_agreement(dev) -> None:
         f" on the card and the CPU")
     check(all(same), "match_coarse targets differ between card and CPU")
 
+    # the bidirectional global match sums float64 products with cuBLAS on
+    # the card and the CPU's BLAS here; on frames with black regions some
+    # products lie below the sums' last bit (ops/match.py::_score_sweep)
+    d1, d2 = (r.reshape(48, 64, -1) for r in dark_rows())
+    cpu = global_match_bidi(d1, d2)
+    gpu = global_match_bidi(d1.to(dev), d2.to(dev))
+    share = [float((g.cpu() == c).float().mean()) for g, c in zip(gpu, cpu)]
+    log(f"global_match_bidi on dark_rows (48x64, D={d1.shape[-1]}): "
+        f"{', '.join(f'{v:.4%}' for v in share)} of the (t1y, t1x, t2y, "
+        f"t2x) targets identical on the card and the CPU")
+    check(all(v == 1.0 for v in share),
+          "global_match_bidi targets differ between card and CPU on dark_rows")
+
 
 SOURCES = {  # name: (source, the TPU kernel it replaces, the path it runs on)
+    "cost_terms": ("eppm_tpu_torch/csrc/cost.cu",
+                   "eppm_tpu/ops/pallas_cost.py:173 (the AD + census terms; "
+                   "also of :60)", "default"),
     "residual_costs": ("eppm_tpu_torch/csrc/cost.cu",
                        "eppm_tpu/ops/pallas_cost.py:173", "default"),
     "residual_costs_multiwarp": ("eppm_tpu_torch/csrc/cost.cu",

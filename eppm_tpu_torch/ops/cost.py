@@ -37,7 +37,8 @@ from ..config import CostConfig
 from ._util import exp_cephes, ftz, inv32, pad_edge, popcount8, shift2d
 
 __all__ = ["pack_frame", "make_patch_stack", "patch_cost_stack", "tap_weight",
-           "cost_constants", "bilateral_cost", "PLANE_COEFS", "plane_offsets",
+           "cost_constants", "ad_census", "bilateral_cost", "PLANE_COEFS",
+           "plane_offsets",
            "patch_cost_planefitting", "quantize_cost", "TAP_CHUNK"]
 
 # Taps per partial sum of the cost (the JAX package's ``cost_tap_chunk``).
@@ -83,6 +84,19 @@ def tap_weight(dy: int, dx: int, sigma_spatial: float) -> float:
     return float(torch.tensor(g, dtype=torch.float32))
 
 
+def ad_census(p1: torch.Tensor, p2: torch.Tensor, inv_lam_ad2: float,
+              inv_lam_cen2: float) -> torch.Tensor:
+    """c_ad + c_cen of tap pairs (packs p1, p2): the term of the cost that
+    depends on the two taps alone, not on the centres or the spatial
+    weight.  Kernel A's terms pass computes the same operations."""
+    ad = maxabs3(p1[..., :3], p2[..., :3])
+    c_ad = 1.0 - exp_cephes(-(ad * ad) * inv_lam_ad2)
+    x = p1[..., 3].to(torch.int32) ^ p2[..., 3].to(torch.int32)
+    ham = popcount8(x).to(torch.float32)
+    c_cen = 1.0 - exp_cephes(-(ham * ham) * inv_lam_cen2)
+    return c_ad + c_cen
+
+
 def bilateral_cost(
     taps: Iterable[Tuple[torch.Tensor, torch.Tensor]],
     center1: torch.Tensor,
@@ -102,15 +116,10 @@ def bilateral_cost(
     cost_sum = weight_sum = part_c = part_w = 0.0
     n = len(gws)
     for t, ((p1, p2), gw) in enumerate(zip(taps, gws)):
-        ad = maxabs3(p1[..., :3], p2[..., :3])
-        c_ad = 1.0 - exp_cephes(-(ad * ad) * inv_lam_ad2)
-        x = p1[..., 3].to(torch.int32) ^ p2[..., 3].to(torch.int32)
-        ham = popcount8(x).to(torch.float32)
-        c_cen = 1.0 - exp_cephes(-(ham * ham) * inv_lam_cen2)
         dr1 = maxabs3(center1, p1[..., :3])
         dr2 = maxabs3(center2, p2[..., :3])
         wgt = ftz(exp_cephes(-(dr1 * dr1 + dr2 * dr2) * inv_sig_r2) * gw)
-        part_c = part_c + wgt * (c_ad + c_cen)
+        part_c = part_c + wgt * ad_census(p1, p2, inv_lam_ad2, inv_lam_cen2)
         part_w = part_w + wgt
         if (t + 1) % chunk == 0 or t + 1 == n:
             cost_sum = cost_sum + part_c

@@ -17,8 +17,8 @@ import torch
 
 from ..config import FLT_MAX, UNKNOWN_FLOW_THRESH, CostConfig
 from ._util import grid, pad_edge, shift2d
-from .cost import (TAP_CHUNK, bilateral_cost, plane_offsets, quantize_cost,
-                   tap_weight)
+from .cost import (TAP_CHUNK, ad_census, bilateral_cost, cost_constants,
+                   plane_offsets, quantize_cost, tap_weight)
 
 __all__ = [
     "center_out_offsets",
@@ -27,6 +27,7 @@ __all__ = [
     "warp_pack",
     "residual_costs",
     "residual_costs_multiwarp",
+    "cost_terms",
     "dense_refine_flow",
     "cost_tables",
 ]
@@ -171,6 +172,40 @@ def residual_costs_multiwarp(
     m = _reach(cfg.tap_offsets)
     frames = torch.stack([pad_edge(wk, m, m) for wk in warped_stack])
     return _cost_from_stack(pack1, frames, m, cfg, cfg.tap_offsets)
+
+
+def cost_terms(
+    pack1: torch.Tensor,
+    frames: torch.Tensor,
+    maps: Sequence[Tuple[int, int, int]],
+    reach: int,
+    cfg: CostConfig,
+) -> torch.Tensor:
+    """The AD + census term of the residual cost, once per shifted pixel:
+    for each map (f, sy, sx) and each u of the padded domain
+    [-R, H+R) x [-R, W+R) (R = ``reach``), ``ad_census`` between
+    pack1[clamp(u)] and frames[f][clamp(u + s)] -> (M, H+2R, W+2R) float32.
+    ``frames`` is (H, W, 4) (f = 0) or (F, H, W, 4).
+
+    The cost's tap d of candidate c with frame-2 tap e reads these two
+    pixels at u = p + d, s = c + e - d (both clamps of the plain version
+    are of the unclamped sums), so ``residual_costs`` takes its c_ad + c_cen
+    from map s at u: the plain version of kernel A's terms pass
+    (``ops/cuda_cost.py::cost_terms_cuda``)."""
+    frames = frames[None] if frames.dim() == 3 else frames
+    h, w = pack1.shape[0], pack1.shape[1]
+    R = reach
+    inv_lam_ad2, inv_lam_cen2, _ = cost_constants(cfg)
+    pad1 = pad_edge(pack1, R, R)
+    S = R + max(max(abs(sy), abs(sx)) for (_, sy, sx) in maps)
+    padded = {}
+    out = []
+    for f, sy, sx in maps:
+        if f not in padded:
+            padded[f] = pad_edge(frames[f], S, S)
+        p2 = padded[f][S - R + sy : S + R + sy + h, S - R + sx : S + R + sx + w]
+        out.append(ad_census(pad1, p2, inv_lam_ad2, inv_lam_cen2))
+    return torch.stack(out)
 
 
 def dense_refine_flow(

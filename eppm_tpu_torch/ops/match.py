@@ -80,15 +80,23 @@ def _score_sweep(desc1: torch.Tensor, desc2: torch.Tensor, block: int,
 
     The JAX package multiplies the bf16 descriptors with a float32
     result.  Here the bf16 values are multiplied and summed in float64: a
-    product of two bf16 values has 16 significant bits, so the dot
-    products and norms are exact, whatever order the CPU's or the GPU's
-    matrix product sums in.  The scores, their x4096 rounding and the
-    argmaxes are then the same on every device; against the JAX package's
-    float32 sums they differ only where a score lies within float32
-    rounding of a half step.  (A bf16 torch matmul would round every score
-    to bf16; a float32 one sums in a device-dependent order, and on the
-    GPU may use TF32.  No float32 product is taken, so the TF32 switches
-    do not apply.)"""
+    product of two bf16 values has 16 significant bits, so a sum of them
+    is exact, whatever order the CPU's or the GPU's matrix product sums
+    in, as long as every product's lowest bit lies within float64's 53
+    bits of the largest partial sum.  At the default descriptor (sums
+    below 2^10) that holds while no nonzero feature is below 2^-15.
+    Frames with black regions break it: smoothing leaves features near
+    2^-20 at their edges (``eppm_tpu_torch/testing.py::dark_rows``),
+    and there a sum may round, differently in another
+    order; a target can then change only where a score lies within that
+    rounding of a half step (``chip_smoke.py`` holds the card to the CPU
+    on such data).  Where the condition holds, the scores, their x4096
+    rounding and the argmaxes are the same on every device; against the
+    JAX package's float32 sums they differ only where a score lies
+    within float32 rounding of a half step.  (A bf16 torch matmul would
+    round every score to bf16; a float32 one sums in a device-dependent
+    order, and on the GPU may use TF32.  No float32 product is taken, so
+    the TF32 switches do not apply.)"""
     n1, n2 = desc1.shape[0], desc2.shape[0]
     d1 = desc1.to(torch.float64)
     d2 = desc2.to(torch.float64)

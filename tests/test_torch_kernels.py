@@ -25,7 +25,8 @@ from eppm_tpu_torch.ops.census import census_transform
 from eppm_tpu_torch.ops.cost import pack_frame
 from eppm_tpu_torch.ops.dense import center_out_offsets
 from eppm_tpu_torch.ops.refine import fill_holes
-from test_torch_argmax_plan import dark_rows, texture_rows
+from eppm_tpu_torch.testing import dark_rows
+from test_torch_argmax_plan import texture_rows
 
 # The suite runs several test processes per host: one torch thread each
 # keeps them from oversubscribing the cores.
@@ -74,8 +75,8 @@ def _descriptors(n1, n2, d=275, seed=0, device="cpu"):
 
 
 # the kernels that the default path launches
-DEFAULT_PATH = (cuda_cost.SINGLE, cuda_cost.MULTIWARP, cuda_smooth.KERNEL,
-                cuda_wmf.KERNEL)
+DEFAULT_PATH = (cuda_cost.TERMS, cuda_cost.SINGLE, cuda_cost.MULTIWARP,
+                cuda_smooth.KERNEL, cuda_wmf.KERNEL)
 
 
 def _counts(kernels=DEFAULT_PATH + (cuda_cost.PLANES, cuda_match.KERNEL)):
@@ -90,6 +91,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     flow = torch.zeros((8, 12, 2))
     tx, ty, wimg = _wmf_inputs(8, 12)
     d1, d2 = _descriptors(5, 7)
+    r = max(max(abs(v) for v in t) for t in CFG.cost.tap_offsets)
+    terms = torch.zeros((1, 8 + 2 * r, 12 + 2 * r))
     calls = [
         lambda: cuda_cost.residual_costs_cuda(p1, p2, [(0, 0)], CFG.cost),
         lambda: cuda_cost.residual_costs_planes_cuda(p1, p2, [(0, 0)],
@@ -97,6 +100,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         lambda: cuda_match.global_argmax_cuda(d1, d2),
         lambda: cuda_cost.residual_costs_multiwarp_cuda(p1, p2[None],
                                                         CFG.cost),
+        lambda: cuda_cost.cost_terms_cuda(p1, p2, [(0, 0, 0)], CFG.cost,
+                                          [CFG.cost.tap_offsets]),
+        lambda: cuda_cost.cost_sums_cuda(cuda_cost.SINGLE, p1, p2, terms,
+                                         [(0, 0, 0)], CFG.cost,
+                                         [CFG.cost.tap_offsets]),
         lambda: cuda_smooth.flow_smoothing_cuda(flow, img, CFG.refine),
         lambda: cuda_wmf.weighted_median_filter_cuda(tx, ty, wimg,
                                                      CFG.refine),
@@ -292,7 +300,7 @@ def test_kernel_a_matches_plain(cuda, radius, cfg_name):
     got = cuda_cost.residual_costs_auto(p1, p2, cands, cfg)
     assert cuda_cost.SINGLE.launches == n + 1
     want = cuda_cost.residual_costs(p1, p2, cands, cfg)
-    assert float((got - want).abs().max()) <= 1e-4
+    assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
@@ -303,7 +311,7 @@ def test_kernel_a_multiwarp_matches_plain(cuda):
     got = cuda_cost.residual_costs_multiwarp_auto(p1, stack, CFG.cost)
     assert cuda_cost.MULTIWARP.launches == n + 1
     want = cuda_cost.residual_costs_multiwarp(p1, stack, CFG.cost)
-    assert float((got - want).abs().max()) <= 1e-4
+    assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
@@ -317,12 +325,52 @@ def test_kernel_a_planes_matches_plain(cuda, cfg_name):
     got = cuda_cost.residual_costs_auto(p1, p2, cands, cfg, use_planes=True)
     assert cuda_cost.PLANES.launches == n + 1
     want = cuda_cost.residual_costs(p1, p2, cands, cfg, use_planes=True)
-    assert float((got - want).abs().max()) <= 1e-4
+    assert torch.equal(got, want)
     # the plane tables of one launch stay in place for the next
     fronto = cuda_cost.residual_costs_auto(p1, p2, cands, cfg)
     again = cuda_cost.residual_costs_auto(p1, p2, cands, cfg, use_planes=True)
     torch.cuda.synchronize()
     assert torch.equal(again, got) and bool((got <= fronto).all())
+
+
+@pytest.mark.gpu
+def test_kernel_a_matches_plain_on_a_frame_smaller_than_the_reach(cuda):
+    """5x7 frames against taps reaching 9 px: every tap, candidate and
+    frame-2 read clamps, and the terms run over a padded domain larger
+    than the frame.  Fronto (radius 3), multiwarp and plane mode; each
+    wrapper call launches the terms pass and its own count once."""
+    (_, p1), (_, p2) = _packs(5, 7, device=cuda)
+    stack = torch.stack([torch.roll(p2, s, 1) for s in range(5)])
+    cands = center_out_offsets(3)
+    counts = (cuda_cost.TERMS, cuda_cost.SINGLE, cuda_cost.MULTIWARP,
+              cuda_cost.PLANES)
+    before = [c.launches for c in counts]
+    got = [cuda_cost.residual_costs_cuda(p1, p2, cands, CFG.cost),
+           cuda_cost.residual_costs_multiwarp_cuda(p1, stack, CFG.cost),
+           cuda_cost.residual_costs_planes_cuda(p1, p2, cands[:9], CFG.cost)]
+    assert [c.launches - b for c, b in zip(counts, before)] == [3, 1, 1, 1]
+    want = [cuda_cost.residual_costs(p1, p2, cands, CFG.cost),
+            cuda_cost.residual_costs_multiwarp(p1, stack, CFG.cost),
+            cuda_cost.residual_costs(p1, p2, cands[:9], CFG.cost, True)]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("planes", [False, True])
+def test_kernel_a_terms_pass_matches_plain(cuda, planes):
+    """The terms pass alone against ``cost_terms``, on the maps of a
+    radius-1 search (9 fronto maps, or the 100 of the plane mode)."""
+    (_, p1), (_, p2) = _packs(40, 56, device=cuda)
+    cands = [(cy, cx, 0) for cy, cx in center_out_offsets(1)]
+    tables = cuda_cost.cost_tables(CFG.cost, planes)
+    plan = cuda_cost.cost_plan(cands, CFG.cost.tap_offsets, tables)
+    n = cuda_cost.TERMS.launches
+    got = cuda_cost.cost_terms_cuda(p1, p2, cands, CFG.cost, tables)
+    assert cuda_cost.TERMS.launches == n + 1
+    assert got.shape == (100 if planes else 9, 40 + 18, 56 + 18)
+    assert torch.equal(got, cuda_cost.cost_terms(p1, p2, plan.maps, 9,
+                                                 CFG.cost))
 
 
 @pytest.mark.gpu
