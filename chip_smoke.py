@@ -12,15 +12,16 @@ final line is not printed):
 3. kernels against their plain PyTorch versions, on the card, at the
    shapes the main paths give them: kernel A identical (max |diff| 0,
    no value differs) in its fronto, multiwarp and plane modes, and its
-   terms pass identical to ``cost_terms``; smoothing <= 1e-3 (the
-   tolerance of ``tools/tpu_check.py``); WMF < 0.5% of pixels choosing
-   another target; the global argmax identical indices (kernel D at
-   N1 = N2 = 1200, 8160 and 129,600); with each one's time beside the
-   plain version's (CUDA events, after a warm-up; kernel A's two passes
-   also apart), its bound (the larger of its operations, counted from
-   its source, over the card's peak and its bytes over the memory rate)
-   and, for kernel D, the float64 matrix products alone as the library
-   yardstick;
+   terms pass identical to ``cost_terms``; kernel B identical, the
+   paired kernel at the default radius 10 and the one-pass kernel at
+   radius 6 (the launch counts say which ran); WMF < 0.5% of pixels
+   choosing another target; the global argmax identical indices (kernel
+   D at N1 = N2 = 1200, 8160 and 129,600); with each one's time beside
+   the plain version's (CUDA events, after a warm-up; kernel A's two
+   passes also apart), its bound (the larger of its operations, counted
+   from its source, over the card's peak and its bytes over the memory
+   rate) and, for kernel D, the float64 matrix products alone as the
+   library yardstick;
 4. end to end, one path after another, each with every launch count set
    to 0 just before it and read just after, and each of its kernels
    launched at least once (then, outside the counted run, one 1080p
@@ -32,9 +33,13 @@ final line is not printed):
      1920x1080 on synthetic pairs with a known integer translation (a
      small and a large one at each size);
    - ``EPPMFlow`` with the gathered plane-fitting refine
-     (``refine_impl="gather"``) at 640x480;
-   each with finite flow, warp error below 0.6x the zero-flow baseline
-   and the interior EPE against the known shift;
+     (``refine_impl="gather"``), and with the smoothing radius 6
+     (``refine.blf_sigma_spatial=3.0``), at 640x480;
+   each with finite flow, warp error below 0.6x the zero-flow baseline,
+   the interior EPE against the known shift, and the smoothing kernel
+   launched once per fine level and once at the end (3 per 640x480
+   pair, 4 per 1080p pair: the paired kernel, or at radius 6 the
+   one-pass kernel);
    - ``match_coarse`` (single direction) on the coarse level of a
      3840x2160 pair under ``pyramid.auto_depth_dim=0`` (540x960, global
      proposals on a stride-2 grid of 129,600 targets): the known shift
@@ -140,7 +145,15 @@ COST_SUM_OPS = 41
 COST_DR1_OPS = 5
 COST_TERM_OPS = 66
 COST_TAP_OPS = COST_TERM_OPS + COST_DR1_OPS + COST_SUM_OPS  # 112
-SMOOTH_TAP_OPS = 43   # csrc/smooth.cu: per (pixel, in-image known tap)
+# Kernel B (csrc/smooth.cu): the range weight once per unordered in-image
+# pair that a known tap reads (dr 5, square and scale 2, exp 27, spatial
+# scale 1, flush 1), the sums per (pixel, in-image known tap) (known test
+# 2, two weighted sums 4, weight sum 1).  SMOOTH_ONE_PASS_OPS is both per
+# (pixel, known tap), as the one-pass kernel computes them: the earlier
+# yardstick, logged beside the bound.
+SMOOTH_PAIR_OPS = 36
+SMOOTH_TAP_OPS = 7
+SMOOTH_ONE_PASS_OPS = SMOOTH_PAIR_OPS + SMOOTH_TAP_OPS  # 43
 WMF_SUPPORT_OPS = 38  # csrc/wmf.cu: per (pixel, in-image support), the weight
 WMF_PAIR_OPS = 5      # csrc/wmf.cu: per (valid candidate, support)
 
@@ -164,6 +177,22 @@ def window_count(mask: torch.Tensor, offsets) -> torch.Tensor:
     for dy, dx in offsets:
         out += m[r + dy : r + dy + h, r + dx : r + dx + w]
     return out
+
+
+def pair_count(known: torch.Tensor, r: int) -> int:
+    """Unordered pairs {p, q} of in-image pixels within the (2r+1)^2
+    window whose range weight some known tap reads (q known, for p's tap,
+    or p known, for q's); {p, p} counts where p is known."""
+    h, w = known.shape
+    n = int(known.sum())
+    for dy in range(0, min(r, h - 1) + 1):
+        for dx in range(-r, r + 1):
+            if (dy == 0 and dx <= 0) or abs(dx) >= w:
+                continue
+            a = known[: h - dy, max(0, -dx) : w - max(0, dx)]
+            b = known[dy:, max(0, dx) : w + min(0, dx)]
+            n += int((a | b).sum())
+    return n
 
 
 def term_pixels(plan, taps, h: int, w: int, dev) -> int:
@@ -229,11 +258,29 @@ def _packs(h, w, dx, dy, seed, dev):
     return out
 
 
+# kernel B's shapes (h, w, radius): the default path's 640x480 and 1080p
+# level 0, and radius 6 (refine.blf_sigma_spatial=3.0)
+SMOOTH_CASES = [(480, 640, 10), (1080, 1920, 10), (480, 640, 6)]
+
+
+def smooth_inputs(h, w, dev):
+    """Kernel B's inputs: flow uniform in [-3, 3) with an unknown block,
+    and a textured image."""
+    from eppm_tpu_torch.config import UNKNOWN_FLOW
+
+    (img, _), _ = _packs(h, w, 3, -2, SEED + 2, dev)
+    rng = np.random.default_rng(SEED + 2)
+    flow = torch.from_numpy(
+        (rng.random((h, w, 2)) * 6 - 3).astype(np.float32)).to(dev)
+    flow[h // 4 : h // 2, w // 4 : w // 3] = UNKNOWN_FLOW
+    return flow, img
+
+
 def phase_kernels(dev) -> dict:
     """Each kernel against its plain version at main-path shapes."""
     log("== phase 3: kernels against their plain versions")
     from eppm_tpu_torch.config import DEFAULT_CONFIG as cfg
-    from eppm_tpu_torch.config import INVALID_LOCATION, UNKNOWN_FLOW
+    from eppm_tpu_torch.config import INVALID_LOCATION
     from eppm_tpu_torch.ops import cuda_cost, cuda_match, cuda_smooth
     from eppm_tpu_torch.ops import cuda_wmf
     from eppm_tpu_torch.ops._util import grid
@@ -428,30 +475,43 @@ def phase_kernels(dev) -> dict:
             cuda_cost.cost_tables(cfg.cost, False), 20)
         record_terms_error(terms_row[0])
 
-    for h, w in [(480, 640), (1080, 1920)]:
-        (img, _), _ = _packs(h, w, 3, -2, SEED + 2, dev)
-        rng = np.random.default_rng(SEED + 2)
-        flow = torch.from_numpy(
-            (rng.random((h, w, 2)) * 6 - 3).astype(np.float32)).to(dev)
-        flow[h // 4 : h // 2, w // 4 : w // 3] = UNKNOWN_FLOW
-        k = cuda_smooth.flow_smoothing_cuda(flow, img, cfg.refine)
-        ref = cuda_smooth.flow_smoothing(flow, img, cfg.refine)
+    # kernel B: the paired kernel at the default radius 10, the one-pass
+    # kernel at radius 6 (refine.blf_sigma_spatial=3.0); the counts say
+    # which one each call launched
+    smooth_kernels = {"flow_smoothing_paired": cuda_smooth.PAIRED,
+                      "flow_smoothing": cuda_smooth.KERNEL}
+    for h, w, r in SMOOTH_CASES:
+        rcfg = dataclasses.replace(cfg.refine, blf_sigma_spatial=r / 2)
+        flow, img = smooth_inputs(h, w, dev)
+        before = {n: c.launches for n, c in smooth_kernels.items()}
+        k = cuda_smooth.flow_smoothing_cuda(flow, img, rcfg)
+        ran = [n for n, c in smooth_kernels.items()
+               if c.launches > before[n]]
+        check(len(ran) == 1, f"kernel B at r={r}: launched {ran}")
+        ref = cuda_smooth.flow_smoothing(flow, img, rcfg)
         err = float((k - ref).abs().max())
+        differ = float((k != ref).float().mean())
         ms = cuda_ms(lambda: cuda_smooth.flow_smoothing_cuda(
-            flow, img, cfg.refine), 10)
+            flow, img, rcfg), 10)
         pms = cuda_ms(lambda: cuda_smooth.flow_smoothing(
-            flow, img, cfg.refine), 2)
-        r = cfg.refine.blf_radius
+            flow, img, rcfg), 2)
         known = (flow[..., 0] <= 1e9) & (flow[..., 1] <= 1e9)
-        taps = window_count(known, [(dy, dx) for dy in range(-r, r + 1)
-                                    for dx in range(-r, r + 1)])
+        taps = float(window_count(known, [(dy, dx)
+                                          for dy in range(-r, r + 1)
+                                          for dx in range(-r, r + 1)]).sum())
+        pairs = pair_count(known, r)
         # flow and output float2, the image 3 floats
-        bms, by = bound(float(taps.sum()) * SMOOTH_TAP_OPS, F32_FLOPS,
-                        h * w * (8 + 12 + 8))
-        log(f"smooth {h}x{w}: max|diff| {err:.3g}  kernel {ms:.3f} ms  "
-            f"plain {pms:.3f} ms  bound {bms:.3f} ms ({by})")
-        check(err <= 1e-3, f"kernel B smoothing diff {err} > 1e-3")
-        record("flow_smoothing", err, ms, pms, bms, by)
+        bms, by = bound(pairs * SMOOTH_PAIR_OPS + taps * SMOOTH_TAP_OPS,
+                        F32_FLOPS, h * w * (8 + 12 + 8))
+        one_pass_ms = bound(taps * SMOOTH_ONE_PASS_OPS, F32_FLOPS, 0)[0]
+        log(f"smooth {h}x{w} r={r} ({ran[0]}): max|diff| {err:.3g} "
+            f"({differ:.2%} differ)  kernel {ms:.3f} ms  plain {pms:.3f} ms"
+            f"  bound {bms:.3f} ms ({by}; {pairs} pairs, {taps:.0f} known "
+            f"taps; {one_pass_ms:.3f} ms at the one-pass count of "
+            f"{SMOOTH_ONE_PASS_OPS} a tap)")
+        check(err == 0 and differ == 0, f"kernel B r={r} {h}x{w}: max|diff| "
+              f"{err}, {differ:.2%} differ")
+        record(ran[0], err, ms, pms, bms, by)
 
     for h, w in [(120, 160), (135, 240)]:
         (img, _), _ = _packs(h, w, 3, -2, SEED + 3, dev)
@@ -551,6 +611,7 @@ def counters() -> dict:
         "residual_costs": cuda_cost.SINGLE,
         "residual_costs_multiwarp": cuda_cost.MULTIWARP,
         "flow_smoothing": cuda_smooth.KERNEL,
+        "flow_smoothing_paired": cuda_smooth.PAIRED,
         "weighted_median_filter": cuda_wmf.KERNEL,
         "residual_costs_planes": cuda_cost.PLANES,
         "global_argmax": cuda_match.KERNEL,
@@ -573,9 +634,10 @@ def drive(path: str, kernels, run) -> dict:
     return launches
 
 
-def flow_case(model, dev, h, w, dx, dy, seed) -> None:
+def flow_case(model, dev, h, w, dx, dy, seed, expect=None) -> None:
     """One synthetic pair through ``model`` (a warm-up run, then a timed
-    one), gated on the warp error."""
+    one), gated on the warp error and on ``expect``, launches per pair of
+    some kernels by their rows' names."""
     from eppm_tpu_torch.metrics import warp_error
 
     f1, f2 = shifted_pair(h, w, dx, dy, seed)
@@ -603,6 +665,9 @@ def flow_case(model, dev, h, w, dx, dy, seed) -> None:
         f"(ratio {we / we0:.3f})  interior EPE {epe:.4f}  launches per pair "
         f"{per_pair}")
     check(we < 0.6 * we0, f"warp error {we:.4f} >= 0.6 x {we0:.4f}")
+    for name, n in (expect or {}).items():
+        check(per_pair.get(name, 0) == n, f"{name}: {per_pair.get(name, 0)} "
+              f"launches per {w}x{h} pair, expected {n}")
 
 
 # the default path's hand kernels by their CUDA names, each with the
@@ -611,6 +676,7 @@ PROFILED = {
     "cost_terms_kernel": ("cost_terms",),
     "residual_cost_kernel": ("residual_costs", "residual_costs_multiwarp"),
     "flow_smooth_kernel": ("flow_smoothing",),
+    "flow_smooth_pair_kernel": ("flow_smoothing_paired",),
     "wmf_iter_kernel": ("weighted_median_filter",),
 }
 
@@ -710,20 +776,32 @@ def phase_end_to_end(dev) -> dict:
         (1080, 1920, -70, 44, SEED + 13),
     ]
     default = ["cost_terms", "residual_costs", "residual_costs_multiwarp",
-               "flow_smoothing", "weighted_median_filter"]
+               "flow_smoothing_paired", "weighted_median_filter"]
+    # radius 6 (the CLI's example): the one-pass smoothing kernel
+    radius6 = dataclasses.replace(cfg, refine=dataclasses.replace(
+        cfg.refine, blf_sigma_spatial=3.0))
     paths = [  # (path, config, cases, kernels it must launch)
         ("default", cfg, cases, default),
         ("planes", dataclasses.replace(cfg, **PLANES_CFG), cases,
          default + ["residual_costs_planes"]),
         ("gather", dataclasses.replace(cfg, refine_impl="gather"),
          cases[:2], default),
+        ("radius 6", radius6, cases[:2],
+         [k if k != "flow_smoothing_paired" else "flow_smoothing"
+          for k in default]),
     ]
     launches = {}
     for path, pcfg, pcases, kernels in paths:
         log(f"-- {path}: EPPMFlow")
         model = EPPMFlow(pcfg)
+        # one smoothing per fine level and one at the end: 3 per 640x480
+        # pair (3 levels), 4 per 1080p pair (4 levels)
+        smooth = ("flow_smoothing" if path == "radius 6"
+                  else "flow_smoothing_paired")
         launches[path] = drive(path, kernels, lambda: [
-            flow_case(model, dev, *case) for case in pcases])
+            flow_case(model, dev, *case,
+                      expect={smooth: 3 if case[0] == 480 else 4})
+            for case in pcases])
         if path == "default":
             profile_pair(model, dev, *cases[2])
     log("-- match_coarse at 4K, depth 3")
@@ -789,8 +867,12 @@ SOURCES = {  # name: (source, the TPU kernel it replaces, the path it runs on)
                        "eppm_tpu/ops/pallas_cost.py:173", "default"),
     "residual_costs_multiwarp": ("eppm_tpu_torch/csrc/cost.cu",
                                  "eppm_tpu/ops/pallas_cost.py:60", "default"),
+    "flow_smoothing_paired": ("eppm_tpu_torch/csrc/smooth.cu",
+                              "eppm_tpu/ops/pallas_smooth.py:38 (radius 10)",
+                              "default"),
     "flow_smoothing": ("eppm_tpu_torch/csrc/smooth.cu",
-                       "eppm_tpu/ops/pallas_smooth.py:38", "default"),
+                       "eppm_tpu/ops/pallas_smooth.py:38 (other radii)",
+                       "radius 6"),
     "weighted_median_filter": ("eppm_tpu_torch/csrc/wmf.cu",
                                "eppm_tpu/ops/pallas_wmf.py:52", "default"),
     "residual_costs_planes": ("eppm_tpu_torch/csrc/cost.cu",

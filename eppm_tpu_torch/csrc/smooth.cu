@@ -8,23 +8,42 @@
 // Taps outside the image and taps whose flow is unknown (> 1e9 in either
 // component: the 1e10 sentinel) weigh 0, so they are skipped: adding a zero
 // term leaves a float sum unchanged.  g is the plain version's float32
-// table of exp(-dy^2/s^2) * exp(-dx^2/s^2), passed by value.  The sums
-// follow the plain version (eppm_tpu_torch/ops/refine.py::flow_smoothing)
-// bit for bit: taps in row-major order, in partial sums of `chunk` taps,
-// the weighted flow in two interleaved partials (even and odd taps of the
-// chunk).  The next pyramid level truncates this flow, so the last bit
-// matters (common.cuh).
+// table of exp(-dy^2/s^2) * exp(-dx^2/s^2), passed by value.  Both kernels
+// below follow the plain version (eppm_tpu_torch/ops/refine.py::
+// flow_smoothing) bit for bit: taps in row-major order, in partial sums of
+// `chunk` taps, the weighted flow in two interleaved partials (even and odd
+// taps of the chunk).  The next pyramid level truncates this flow, so the
+// last bit matters (common.cuh).
 //
-// What bounds it on the H100: arithmetic and L1 traffic — 441 taps each
-// read 20 B (flow float2 + three image floats) and spend one exp (a
-// float64-emulated polynomial).  Simple design: one thread per pixel, a
-// 32 x 8 block so each warp reads consecutive pixels of a row; the window
-// stays in L1/L2.  Not yet done: a shared-memory tile with halo, or the
-// separable row/column structure the Pallas kernel used.
+// What bounds it on the H100: the exp.  exp_cephes is a float32 polynomial
+// whose multiply-adds round through float64 (fma32), ~19 conversions
+// between float32 and float64 an exp, and the SM issues 16 of those a
+// clock; the ~40 other float32 operations of a tap and its 20 B of reads
+// cost far less.
+//
+// flow_smooth_pair_kernel, the default radius 10, where 2r + 1 == chunk
+// and so each partial sum is one row of the window: each range weight once
+// per unordered pixel pair.  The weight is symmetric bit for bit:
+// |a - b| == |b - a| in IEEE arithmetic and g(dy, dx) == g(-dy, -dx), so
+// w(p, p + d) at tap k is w(p + d, p) at tap n^2 - 1 - k.  A block owns a
+// TH x TW tile and stages the (TH + 2r) x (TW + 2r) window of image and
+// flow in shared memory.  For dy = r down to 1 it computes the 2r + 1
+// fields W_e(x) = w(x, x + (-dy, e)) over their bounding box (rows of the
+// tile and dy below it, TW + |e| columns), spread over the block's threads
+// by one flat index; then each thread sums row -dy of its pixel p from
+// W_e(p), e ascending, and adds it at once (rows -r..-1 come in sum order),
+// and row +dy from W_{-dx}(p + (dy, dx)), dx ascending, and keeps it.
+// Row 0 takes r fields the same way, then rows +1..+r are added in order.
+// A 32 x 32 tile needs ~299 exps a pixel instead of 441; one block of 1024
+// threads fills an SM's shared memory.
+//
+// flow_smooth_kernel, every other radius (a chunk then spans rows): one
+// thread per pixel walking its window through L1, one exp per tap.
 
 #include "common.cuh"
 
 #define MAX_SMOOTH_TAPS 961  // radius <= 15
+#define EPPM_UNKNOWN_FLOW 1e10f  // the plain version's pad: unknown flow
 
 struct SmoothTable {
     float g[MAX_SMOOTH_TAPS];
@@ -75,6 +94,250 @@ __global__ void flow_smooth_kernel(
     }
 }
 
+// ---- the paired kernel ---------------------------------------------------
+
+#define PAIR_R 10                       // the radius whose rows are chunks
+#define PAIR_N (2 * PAIR_R + 1)
+#define PAIR_G ((PAIR_R + 1) * PAIR_N)  // g of rows -r..0
+
+struct PairTable {
+    float g[PAIR_G];
+};
+
+// Field ei (e = ei - r) of a row pair is TW + |e| wide; in one row of the
+// fields they lie side by side, e ascending, field ei from column
+// pair_start(ei).  Row 0's fields, e = -r..-1, are the first r of them.
+__host__ __device__ constexpr int pair_start(int ei, int TW) {
+    return ei * TW + (ei <= PAIR_R
+                      ? ei * PAIR_R - ei * (ei - 1) / 2
+                      : PAIR_R * (PAIR_R + 1) / 2
+                        + (ei - PAIR_R - 1) * (ei - PAIR_R) / 2);
+}
+
+// A TH x TW tile, PPT pixels a thread (rows ty, ty + TH / PPT, ...).
+template <int TH, int TW, int PPT>
+struct PairTile {
+    static constexpr int R = PAIR_R, N = PAIR_N;
+    static constexpr int THREADS = TH * TW / PPT;
+    static constexpr int WH = TH + 2 * R, WW = TW + 2 * R;  // staged window
+    static constexpr int L = pair_start(N, TW);    // a row of the fields
+    static constexpr int L0 = pair_start(R, TW);   // a row of row 0's
+    static constexpr int FIELD = (TH + R) * L;
+    // rows +r and +r-1 of the kept row partials wait in shared memory, so
+    // that the other 3 (r - 2) a pixel fit in registers without a spill
+    // (64 a thread in a block of 1024)
+    static constexpr int KEEP = 2;
+    // image (r, g, b, known) float4 and flow float2 per window pixel, the
+    // fields, g of rows -r..0, the kept partials, and the column table of
+    // a row of fields
+    static constexpr int SMEM = WH * WW * (16 + 8) + FIELD * 4 + PAIR_G * 4
+                                + KEEP * 3 * TH * TW * 4 + L * 2;
+    static_assert(TH % PPT == 0 && THREADS % 32 == 0, "tile");
+    static_assert(TW + R < 64, "a field column takes 6 bits");
+    static_assert(R <= TH, "a row pair's box is one span of rows");
+};
+
+// W(x) = w(x, x + (-dy, e)) for the positions (by, c) of `rows` rows of
+// `len` field columns from the tile's first row (dy = 0: row 0's fields,
+// len = L0, e < 0).  A weight that no known tap reads (neither x nor its
+// partner holds known flow) is left 0.
+template <class T>
+__device__ __forceinline__ void pair_fields(
+    float* field, const float4* simg, const unsigned short* cols,
+    const float* sg, int dy, int rows, int len, float inv_sig_r2)
+{
+    const int total = rows * len;
+    for (int i = threadIdx.x; i < total; i += T::THREADS) {
+        const int by = i / len, c = i - by * len;
+        const int code = cols[c], ei = code >> 6, e = ei - T::R;
+        const int wy = T::R + by, wx = T::R - max(e, 0) + (code & 63);
+        const float4 a = simg[wy * T::WW + wx];
+        const float4 b = simg[(wy - dy) * T::WW + wx + e];
+        float v = 0.f;
+        if (a.w != 0.f || b.w != 0.f) {
+            const float dr = maxabs3(b, a);
+            v = ftz(exp_cephes(-(dr * dr) * inv_sig_r2)
+                    * sg[(T::R - dy) * T::N + ei]);
+        }
+        field[by * T::L + c] = v;
+    }
+}
+
+// One row of taps of a pixel, as a chunk of the plain version: taps
+// t = dx + r ascending, known ones only, the weighted flow in two
+// interleaved partials; returns (pu0 + pu1, pv0 + pv1, pw).  frow points
+// at the row's dx = 0 flow, weight(t) gives the tap's weight.
+template <class Weight>
+__device__ __forceinline__ float3 pair_row(const float2* frow,
+                                           Weight weight)
+{
+    float pu[2] = {0.f, 0.f}, pv[2] = {0.f, 0.f}, pw = 0.f;
+#pragma unroll
+    for (int t = 0; t < PAIR_N; ++t) {
+        const float2 f = frow[t - PAIR_R];
+        if (f.x <= EPPM_UNKNOWN_THRESH && f.y <= EPPM_UNKNOWN_THRESH) {
+            const float w = weight(t);
+            pu[t & 1] = pu[t & 1] + w * f.x;
+            pv[t & 1] = pv[t & 1] + w * f.y;
+            pw = pw + w;
+        }
+    }
+    return make_float3(pu[0] + pu[1], pv[0] + pv[1], pw);
+}
+
+template <int TH, int TW, int PPT>
+__global__ void __launch_bounds__(PairTile<TH, TW, PPT>::THREADS, 1)
+flow_smooth_pair_kernel(
+    const float2* __restrict__ flow, const float* __restrict__ img,
+    float2* __restrict__ out, int H, int W, float inv_sig_r2,
+    const PairTable tab)
+{
+    using T = PairTile<TH, TW, PPT>;
+    constexpr int R = T::R, N = T::N, WW = T::WW, L = T::L;
+    extern __shared__ float4 smem[];
+    float4* simg = smem;
+    float2* sflow = (float2*)(simg + T::WH * WW);
+    float* field = (float*)(sflow + T::WH * WW);
+    float* sg = field + T::FIELD;
+    float* skeep = sg + PAIR_G;  // (KEEP, 3, TH * TW)
+    unsigned short* cols = (unsigned short*)(skeep + T::KEEP * 3 * TH * TW);
+    const int tid = threadIdx.x;
+    const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
+
+    // the window; out of the image the flow is unknown, as in the plain
+    // version's constant pad
+    for (int i = tid; i < T::WH * WW; i += T::THREADS) {
+        const int wy = i / WW, wx = i - wy * WW;
+        const int y = y0 - R + wy, x = x0 - R + wx;
+        float4 c = make_float4(0.f, 0.f, 0.f, 0.f);
+        float2 f = make_float2(EPPM_UNKNOWN_FLOW, EPPM_UNKNOWN_FLOW);
+        if (y >= 0 && y < H && x >= 0 && x < W) {
+            const size_t q = (size_t)y * W + x;
+            f = flow[q];
+            const bool known =
+                f.x <= EPPM_UNKNOWN_THRESH && f.y <= EPPM_UNKNOWN_THRESH;
+            c = make_float4(img[3 * q], img[3 * q + 1], img[3 * q + 2],
+                            known ? 1.f : 0.f);
+        }
+        simg[i] = c;
+        sflow[i] = f;
+    }
+    // column c of a row of fields -> (ei << 6) | column within field ei
+    for (int c = tid; c < L; c += T::THREADS) {
+        int ei = 0;
+        while (c >= pair_start(ei + 1, TW)) ++ei;
+        cols[c] = (unsigned short)((ei << 6) | (c - pair_start(ei, TW)));
+    }
+    for (int k = tid; k < PAIR_G; k += T::THREADS) sg[k] = tab.g[k];
+    __syncthreads();
+
+    const int tx = tid % TW, ty0 = tid / TW;
+    constexpr int TS = TH / PPT;  // rows between a thread's pixels
+    float su[PPT], sv[PPT], sw[PPT];
+    float ku[PPT][R], kv[PPT][R], kw[PPT][R];  // rows +1..+r - KEEP, kept
+#pragma unroll
+    for (int j = 0; j < PPT; ++j) su[j] = sv[j] = sw[j] = 0.f;
+
+#pragma unroll
+    for (int dy = R; dy >= 1; --dy) {
+        pair_fields<T>(field, simg, cols, sg, dy, TH + dy, L, inv_sig_r2);
+        __syncthreads();
+#pragma unroll
+        for (int j = 0; j < PPT; ++j) {
+            const int ty = ty0 + j * TS;
+            const float* wneg = field + ty * L + tx;         // W_e(p)
+            const float* wpos = field + (ty + dy) * L + tx;  // rows +dy
+            const float3 a = pair_row(
+                sflow + (ty + R - dy) * WW + tx + R, [&](int t) {
+                    return wneg[pair_start(t, TW) + max(t - R, 0)];
+                });
+            su[j] = su[j] + a.x;
+            sv[j] = sv[j] + a.y;
+            sw[j] = sw[j] + a.z;
+            // tap dx of row +dy: W_{-dx}(p + (dy, dx))
+            const float3 b = pair_row(
+                sflow + (ty + R + dy) * WW + tx + R, [&](int t) {
+                    return wpos[pair_start(N - 1 - t, TW) + max(t - R, 0)];
+                });
+            if (dy > R - T::KEEP) {
+                float* k = skeep + (R - dy) * 3 * TH * TW + ty * TW + tx;
+                k[0] = b.x;
+                k[TH * TW] = b.y;
+                k[2 * TH * TW] = b.z;
+            } else {
+                ku[j][dy - 1] = b.x;
+                kv[j][dy - 1] = b.y;
+                kw[j][dy - 1] = b.z;
+            }
+        }
+        __syncthreads();
+    }
+
+    // row 0: fields e = -r..-1 serve dx < 0 at p and dx > 0 at p + (0, dx)
+    pair_fields<T>(field, simg, cols, sg, 0, TH, T::L0, inv_sig_r2);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < PPT; ++j) {
+        const int ty = ty0 + j * TS;
+        const float4 c = simg[(ty + R) * WW + tx + R];
+        const float dc = maxabs3(c, c);
+        const float wc =
+            ftz(exp_cephes(-(dc * dc) * inv_sig_r2) * sg[R * N + R]);
+        const float* w0 = field + ty * L + tx;
+        const float3 a = pair_row(sflow + (ty + R) * WW + tx + R, [&](int t) {
+            return t < R ? w0[pair_start(t, TW)]
+                 : t == R ? wc
+                 : w0[pair_start(N - 1 - t, TW) + t - R];
+        });
+        su[j] = su[j] + a.x;
+        sv[j] = sv[j] + a.y;
+        sw[j] = sw[j] + a.z;
+#pragma unroll
+        for (int dy = 1; dy <= R; ++dy) {
+            if (dy > R - T::KEEP) {
+                const float* k = skeep + (R - dy) * 3 * TH * TW + ty * TW + tx;
+                su[j] = su[j] + k[0];
+                sv[j] = sv[j] + k[TH * TW];
+                sw[j] = sw[j] + k[2 * TH * TW];
+            } else {
+                su[j] = su[j] + ku[j][dy - 1];
+                sv[j] = sv[j] + kv[j][dy - 1];
+                sw[j] = sw[j] + kw[j][dy - 1];
+            }
+        }
+        const int y = y0 + ty, x = x0 + tx;
+        if (y < H && x < W) {
+            const size_t p = (size_t)y * W + x;
+            if (sw[j] > 0.f) {
+                const float den = fmaxf(sw[j], EPPM_TINY);
+                out[p] = make_float2(su[j] / den, sv[j] / den);
+            } else {
+                out[p] = flow[p];
+            }
+        }
+    }
+}
+
+template <int TH, int TW, int PPT>
+static int launch_pair(const void* flow, const void* img, void* out,
+                       const float* g, int H, int W, float inv_sig_r2,
+                       cudaStream_t stream)
+{
+    using T = PairTile<TH, TW, PPT>;
+    PairTable tab;
+    for (int k = 0; k < PAIR_G; ++k) tab.g[k] = g[k];
+    cudaError_t err = cudaFuncSetAttribute(
+        flow_smooth_pair_kernel<TH, TW, PPT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
+    flow_smooth_pair_kernel<TH, TW, PPT><<<grid, T::THREADS, T::SMEM,
+                                           stream>>>(
+        (const float2*)flow, (const float*)img, (float2*)out, H, W,
+        inv_sig_r2, tab);
+    return (int)cudaGetLastError();
+}
+
 // flow (H, W) float2, img (H, W, 3) float32, out (H, W) float2 on the
 // device; g: host ((2r+1)^2,) float32, row-major over (dy, dx).  Returns
 // cudaGetLastError() after the launch.
@@ -95,4 +358,16 @@ extern "C" int eppm_flow_smoothing(
         (const float2*)flow, (const float*)img, (float2*)out, H, W,
         inv_sig_r2, tab);
     return (int)cudaGetLastError();
+}
+
+// The paired kernel: the same arguments; only r = 10 with chunk = 2r + 1.
+// 32 x 32 tiles, one pixel a thread.
+extern "C" int eppm_flow_smoothing_paired(
+    const void* flow, const void* img, void* out, const float* g,
+    int r, int chunk, int H, int W, float inv_sig_r2, void* stream)
+{
+    if (r != PAIR_R || chunk != PAIR_N || H < 1 || W < 1)
+        return (int)cudaErrorInvalidValue;
+    return launch_pair<32, 32, 1>(flow, img, out, g, H, W, inv_sig_r2,
+                                  (cudaStream_t)stream);
 }

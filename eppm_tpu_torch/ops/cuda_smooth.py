@@ -1,13 +1,21 @@
 """Kernel B — joint bilateral flow smoothing on CUDA (``csrc/smooth.cu``).
 
 Replaces ``eppm_tpu/ops/pallas_smooth.py::_smooth_kernel``.  Bound on the
-H100: arithmetic and L1 traffic (441 taps per pixel at the default radius
-10, one exp and a 20-byte read each).  Simple design: one thread per
-pixel walking its window in row-major order, the spatial weight table
-passed by value, the sums in the plain version's order, so the two agree
-bit for bit (``csrc/common.cuh``).  The plain version is ``flow_smoothing``
-(``ops/refine.py``); ``flow_smoothing_auto`` takes the kernel for CUDA
-tensors and the plain version for CPU tensors, and raises otherwise.
+H100: the exp of each range weight (a float32 polynomial rounded through
+float64, ``csrc/common.cuh``).  Two kernels compute the plain version's
+operations in its order, so both agree with it bit for bit:
+
+- ``PAIRED`` (``flow_smooth_pair_kernel``), where a partial sum of
+  ``SMOOTH_CHUNK`` taps is one row of the window (2r + 1 == 21, the
+  default radius 10): the range weight is symmetric bit for bit, so each
+  unordered pixel pair's weight is computed once in a shared-memory tile
+  and serves both pixels, ~299 exps a pixel instead of 441;
+- ``KERNEL`` (``flow_smooth_kernel``), every other radius: one thread per
+  pixel walking its window, one exp per tap.
+
+The plain version is ``flow_smoothing`` (``ops/refine.py``);
+``flow_smoothing_auto`` takes a kernel for CUDA tensors and the plain
+version for CPU tensors, and raises otherwise.
 """
 
 from __future__ import annotations
@@ -21,15 +29,14 @@ from ._build import CudaKernel
 from ._util import check_tensor, inv32, require_cuda
 from .refine import SMOOTH_CHUNK, flow_smoothing, smoothing_weights
 
-__all__ = ["KERNEL", "check_smooth_args", "flow_smoothing",
+__all__ = ["KERNEL", "PAIRED", "check_smooth_args", "flow_smoothing",
            "flow_smoothing_cuda", "flow_smoothing_auto"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-KERNEL = CudaKernel(
-    "eppm_flow_smoothing",
-    [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
-)
+_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P]
+KERNEL = CudaKernel("eppm_flow_smoothing", _ARGS)
+PAIRED = CudaKernel("eppm_flow_smoothing_paired", _ARGS)
 MAX_RADIUS = 15
 
 
@@ -47,14 +54,17 @@ def check_smooth_args(flow, img, cfg: RefineConfig) -> None:
 def flow_smoothing_cuda(
     flow: torch.Tensor, img: torch.Tensor, cfg: RefineConfig = RefineConfig()
 ) -> torch.Tensor:
-    """Kernel B: same contract as ``flow_smoothing``."""
+    """Kernel B: same contract as ``flow_smoothing``.  The paired kernel
+    where 2r + 1 == ``SMOOTH_CHUNK``, the one-pass kernel otherwise; a
+    refused launch raises."""
     require_cuda(flow, img)
     check_smooth_args(flow, img, cfg)
     h, w, r = flow.shape[0], flow.shape[1], cfg.blf_radius
+    kernel = PAIRED if 2 * r + 1 == SMOOTH_CHUNK else KERNEL
     g = smoothing_weights(cfg)
     out = torch.empty_like(flow)
     with torch.cuda.device(flow.device):
-        KERNEL.launch(
+        kernel.launch(
             flow.data_ptr(), img.data_ptr(), out.data_ptr(), g.ctypes.data,
             r, SMOOTH_CHUNK, h, w, inv32(cfg.blf_sigma_range**2),
             torch.cuda.current_stream().cuda_stream,

@@ -18,7 +18,7 @@ import torch
 
 from eppm_tpu_torch import pipeline
 from eppm_tpu_torch.config import DEFAULT_CONFIG as CFG
-from eppm_tpu_torch.config import INVALID_LOCATION, UNKNOWN_FLOW
+from eppm_tpu_torch.config import INVALID_LOCATION, UNKNOWN_FLOW, RefineConfig
 from eppm_tpu_torch.ops import _build, cuda_cost, cuda_match, cuda_smooth
 from eppm_tpu_torch.ops import cuda_wmf, match, occlusion
 from eppm_tpu_torch.ops.census import census_transform
@@ -76,10 +76,11 @@ def _descriptors(n1, n2, d=275, seed=0, device="cpu"):
 
 # the kernels that the default path launches
 DEFAULT_PATH = (cuda_cost.TERMS, cuda_cost.SINGLE, cuda_cost.MULTIWARP,
-                cuda_smooth.KERNEL, cuda_wmf.KERNEL)
+                cuda_smooth.PAIRED, cuda_wmf.KERNEL)
 
 
-def _counts(kernels=DEFAULT_PATH + (cuda_cost.PLANES, cuda_match.KERNEL)):
+def _counts(kernels=DEFAULT_PATH + (cuda_cost.PLANES, cuda_match.KERNEL,
+                                    cuda_smooth.KERNEL)):
     return tuple(k.launches for k in kernels)
 
 
@@ -426,17 +427,27 @@ def test_kernel_d_library_geometry_is_the_planners(cuda):
 
 
 @pytest.mark.gpu
-def test_kernel_b_matches_plain(cuda):
-    (img, _), _ = _packs(60, 80, device=cuda)
+@pytest.mark.parametrize("radius", [10, 6])
+@pytest.mark.parametrize("h,w", [(60, 80), (37, 70), (7, 5)])
+def test_kernel_b_matches_plain(cuda, radius, h, w):
+    """Identical to the plain version: the paired kernel at the default
+    radius 10 (2r + 1 taps, one partial sum, a row), the one-pass kernel
+    at radius 6 (``--set refine.blf_sigma_spatial=3.0``); 37x70 is not a
+    multiple of the paired kernel's 32 x 32 tile, 7x5 is smaller than the
+    radius."""
+    cfg = RefineConfig(blf_sigma_spatial=radius / 2)
+    (img, _), _ = _packs(h, w, device=cuda)
     rng = np.random.default_rng(1)
-    flow = torch.from_numpy(rng.normal(0, 3, (60, 80, 2)).astype(
+    flow = torch.from_numpy(rng.normal(0, 3, (h, w, 2)).astype(
         np.float32)).to(cuda)
-    flow[10:20, 5:30] = UNKNOWN_FLOW
-    n = cuda_smooth.KERNEL.launches
-    got = cuda_smooth.flow_smoothing_auto(flow, img, CFG.refine)
-    assert cuda_smooth.KERNEL.launches == n + 1
-    want = cuda_smooth.flow_smoothing(flow, img, CFG.refine)
-    assert float((got - want).abs().max()) <= 1e-3
+    flow[h // 6 : h // 3, w // 16 : w // 3 + 1] = UNKNOWN_FLOW
+    flow[: h // 4, -(w // 4) :] = UNKNOWN_FLOW
+    ran, other = ((cuda_smooth.PAIRED, cuda_smooth.KERNEL) if radius == 10
+                  else (cuda_smooth.KERNEL, cuda_smooth.PAIRED))
+    n, m = ran.launches, other.launches
+    got = cuda_smooth.flow_smoothing_auto(flow, img, cfg)
+    assert (ran.launches, other.launches) == (n + 1, m)
+    assert torch.equal(got, cuda_smooth.flow_smoothing(flow, img, cfg))
 
 
 @pytest.mark.gpu
