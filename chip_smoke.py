@@ -14,19 +14,22 @@ final line is not printed):
    no value differs) in its fronto, multiwarp and plane modes, and its
    terms pass identical to ``cost_terms``; kernel B identical, the
    paired kernel at the default radius 10 and the one-pass kernel at
-   radius 6 (the launch counts say which ran); WMF < 0.5% of pixels
-   choosing another target; the global argmax identical indices (kernel
-   D at N1 = N2 = 1200, 8160 and 129,600); with each one's time beside
-   the plain version's (CUDA events, after a warm-up; kernel A's two
-   passes also apart), its bound (the larger of its operations, counted
-   from its source, over the card's peak and its bytes over the memory
-   rate) and, for kernel D, the float64 matrix products alone as the
-   library yardstick;
+   radius 6 (the launch counts say which ran); kernel C identical
+   targets in its polish, Jacobi and full-image modes, with the share of
+   pixels it lists; the global argmax identical indices (kernel D at N1
+   = N2 = 1200, 8160 and 129,600); with each one's time beside the plain
+   version's (CUDA events, after a warm-up; kernel A's two passes also
+   apart; kernel C's wrapper call is host-bound, so its time is device
+   time, the call less the same call at ``num_iter=0``), its bound (the larger of its operations, counted from its
+   source over the work these inputs need, over the card's peak and its
+   bytes over the memory rate) and, for kernel D, the float64 matrix
+   products alone as the library yardstick;
 4. end to end, one path after another, each with every launch count set
    to 0 just before it and read just after, and each of its kernels
-   launched at least once (then, outside the counted run, one 1080p
-   pair of the default path under ``torch.profiler``: each hand
-   kernel's device time and launches per pair):
+   launched at least once, and the share of holes in each of kernel C's
+   polish calls (then, outside the counted run, one 1080p pair of the
+   default path under ``torch.profiler``: each hand kernel's device time
+   and launches per pair, kernel C's two kernels summed):
    - ``EPPMFlow`` under ``DEFAULT_CONFIG``, and with the reference's
      plane-hypothesis re-search in both dense passes
      (``dense_pass1_planes``, ``dense_pass2_planes``), at 640x480 and
@@ -126,6 +129,44 @@ def cuda_ms(fn, reps: int, warm: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Mean device time of fn() in ms over ``reps`` runs, after a warm-up
+    run, without the host's launch overhead: a spin kernel holds the
+    stream while the host enqueues the runs, and the events time what the
+    device then does.  The spin doubles until it outlasts the enqueue, up
+    to 16x; raises if even that spin does not (fn syncs, or fills the
+    launch queue)."""
+    fn()
+    spin = 10**8  # cycles: ~50 ms at the H100's clock
+    while spin <= 16 * 10**8:
+        torch.cuda.synchronize()
+        held, start, end = (torch.cuda.Event(enable_timing=True)
+                            for _ in range(3))
+        held.record()
+        torch.cuda._sleep(spin)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if enqueue_ms < held.elapsed_time(start):
+            return start.elapsed_time(end) / reps
+        spin *= 2
+    raise RuntimeError(f"device_ms: the host's enqueue of {reps} runs "
+                       f"outlasted a spin of {spin // 2} cycles")
+
+
+def wmf_kernel_ms(call, reps: int = 20):
+    """Kernel C's device time in ms, (kernel, whole call, planes alone):
+    the wrapper ``call(num_iter)`` less the same call at num_iter=0, which
+    makes the input planes and the targets and launches nothing."""
+    whole = device_ms(lambda: call(None), reps)
+    planes = device_ms(lambda: call(0), reps)
+    return whole - planes, whole, planes
+
+
 # Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet, dense): float32
 # outside the tensor cores, float64 on the tensor cores, device memory.
 F32_FLOPS = 67e12
@@ -154,8 +195,12 @@ COST_TAP_OPS = COST_TERM_OPS + COST_DR1_OPS + COST_SUM_OPS  # 112
 SMOOTH_PAIR_OPS = 36
 SMOOTH_TAP_OPS = 7
 SMOOTH_ONE_PASS_OPS = SMOOTH_PAIR_OPS + SMOOTH_TAP_OPS  # 43
-WMF_SUPPORT_OPS = 38  # csrc/wmf.cu: per (pixel, in-image support), the weight
-WMF_PAIR_OPS = 5      # csrc/wmf.cu: per (valid candidate, support)
+# Kernel C (csrc/wmf.cu), at each pixel whose output can change: the weight
+# per in-image valid support, the cost term per (valid candidate, support of
+# nonzero weight); the kernel skips the rest, which change no bit.  The
+# earlier yardstick, every support at every pixel, is logged beside it.
+WMF_SUPPORT_OPS = 38
+WMF_PAIR_OPS = 5
 
 
 def bound(ops: float, peak: float, nbytes: float):
@@ -276,17 +321,114 @@ def smooth_inputs(h, w, dev):
     return flow, img
 
 
+# kernel C's shapes: the coarse levels of 640x480 (whole-level Pallas form)
+# and of 1080p (tiled Pallas form)
+WMF_SHAPES = [(120, 160), (135, 240)]
+
+
+def wmf_inputs(h, w, dev):
+    """Kernel C's inputs: the targets of a (3, -2) shift with noise in
+    [-2, 2], ~15% holes and a block of holes, a textured image, and the
+    holes' fill (``fill_holes``)."""
+    from eppm_tpu_torch.config import INVALID_LOCATION
+    from eppm_tpu_torch.ops._util import grid
+    from eppm_tpu_torch.ops.refine import fill_holes
+
+    (img, _), _ = _packs(h, w, 3, -2, SEED + 3, dev)
+    ys, xs = grid(h, w, dev)
+    rng = np.random.default_rng(SEED + 3)
+    off = torch.from_numpy(rng.integers(-2, 3, (2, h, w)).astype(
+        np.int32)).to(dev)
+    tx, ty = xs + 3 + off[0], ys - 2 + off[1]
+    holes = torch.from_numpy(rng.random((h, w)) < 0.15).to(dev)
+    holes[h // 3 : h // 2, w // 3 : w // 2] = True
+    tx = torch.where(holes, INVALID_LOCATION, tx)
+    ty = torch.where(holes, INVALID_LOCATION, ty)
+    return tx, ty, img, fill_holes(tx, ty, img)
+
+
+def wmf_modes(fill):
+    """(label, keyword arguments) of kernel C's modes: the polish, three
+    Jacobi iterations at dilation 2, one full-image iteration."""
+    return [
+        ("polish d=1", dict(only_occlusion=True, polish_init=fill)),
+        ("jacobi x3 d=2", dict(num_iter=3, only_occlusion=True, dilation=2)),
+        ("full d=1", dict(num_iter=1)),
+    ]
+
+
+@dataclasses.dataclass
+class WmfWork:
+    listed: list              # pixels listed, an iteration
+    share: float              # their share of pixels x iterations
+    ops: float                # the bound's operations
+    ops_all_supports: float   # ... with every support of a listed pixel
+    ops_every_pixel: float    # ... at every pixel, every support
+    tx: torch.Tensor          # the plain version, one iteration at a time
+    ty: torch.Tensor
+
+
+def wmf_work(tx, ty, img, rcfg, kw) -> WmfWork:
+    """The work of kernel C's call ``kw`` on these inputs, iteration by
+    iteration (the plain version, one iteration at a time): the pixels
+    that can change (the holes under ``only_occlusion``, all otherwise);
+    for each, WMF_SUPPORT_OPS per in-image valid support (the weight) and
+    WMF_PAIR_OPS per (valid candidate, support of nonzero weight)."""
+    from eppm_tpu_torch.ops import cuda_wmf
+    from eppm_tpu_torch.ops._util import exp_cephes, ftz, inv32, pad_edge
+    from eppm_tpu_torch.ops.refine import _wmf_tables
+
+    dilation = kw.get("dilation", 1)
+    offs, gws = _wmf_tables(rcfg, dilation)
+    polish = kw.get("polish_init") is not None
+    only = polish or kw.get("only_occlusion", False)
+    h, w = tx.shape
+    r = max(max(abs(dy), abs(dx)) for dy, dx in offs)
+    pimg = pad_edge(img, r, r)
+    inside = window_count(torch.ones_like(tx, dtype=torch.bool), offs)
+    valid0 = (tx >= 0) & (ty >= 0)
+    itx, ity = tx, ty
+    listed, ops, ops_all, ops_every = [], 0.0, 0.0, 0.0
+    for _ in range(kw.get("num_iter", 1)):
+        valid = valid0 if polish else (itx >= 0) & (ity >= 0)
+        mask = ~valid if only else torch.ones_like(valid)
+        pv = torch.nn.functional.pad(valid.to(torch.float32),
+                                     (r, r, r, r))
+        nonzero = torch.zeros((h, w), dtype=torch.int64, device=tx.device)
+        for (dy, dx), g in zip(offs, gws):
+            d = (pimg[r + dy : r + dy + h, r + dx : r + dx + w] - img).abs()
+            dr = d.amax(-1)
+            wgt = ftz(pv[r + dy : r + dy + h, r + dx : r + dx + w] * float(g)
+                      * exp_cephes(-(dr * dr) * inv32(rcfg.wmf_sigma_range**2)))
+            nonzero += (wgt > 0).to(torch.int64)
+        # the valid in-image supports are the candidates
+        cands = window_count(valid, offs)
+        listed.append(int(mask.sum()))
+        ops += float(((cands * WMF_SUPPORT_OPS
+                       + cands * nonzero * WMF_PAIR_OPS) * mask).sum())
+        ops_all += float(((inside * WMF_SUPPORT_OPS
+                           + cands * len(offs) * WMF_PAIR_OPS) * mask).sum())
+        ops_every += float((inside * WMF_SUPPORT_OPS
+                            + cands * len(offs) * WMF_PAIR_OPS).sum())
+        if not polish:
+            itx, ity = cuda_wmf.weighted_median_filter(
+                itx, ity, img, rcfg, num_iter=1, only_occlusion=only,
+                dilation=dilation)
+    if polish:
+        itx, ity = cuda_wmf.weighted_median_filter(tx, ty, img, rcfg, **kw)
+    return WmfWork(listed, sum(listed) / (len(listed) * h * w), ops, ops_all,
+                   ops_every, itx, ity)
+
+
 def phase_kernels(dev) -> dict:
     """Each kernel against its plain version at main-path shapes."""
     log("== phase 3: kernels against their plain versions")
     from eppm_tpu_torch.config import DEFAULT_CONFIG as cfg
-    from eppm_tpu_torch.config import INVALID_LOCATION
     from eppm_tpu_torch.ops import cuda_cost, cuda_match, cuda_smooth
     from eppm_tpu_torch.ops import cuda_wmf
     from eppm_tpu_torch.ops._util import grid
     from eppm_tpu_torch.ops.dense import center_out_offsets, warp_pack
     from eppm_tpu_torch.ops.match import _make_mini_cost, patch_descriptors
-    from eppm_tpu_torch.ops.refine import _wmf_tables, fill_holes
 
     rows = {}
 
@@ -513,73 +655,53 @@ def phase_kernels(dev) -> dict:
               f"{err}, {differ:.2%} differ")
         record(ran[0], err, ms, pms, bms, by)
 
-    for h, w in [(120, 160), (135, 240)]:
-        (img, _), _ = _packs(h, w, 3, -2, SEED + 3, dev)
-        ys, xs = grid(h, w, dev)
-        rng = np.random.default_rng(SEED + 3)
-        off = torch.from_numpy(rng.integers(-2, 3, (2, h, w)).astype(
-            np.int32)).to(dev)
-        tx, ty = xs + 3 + off[0], ys - 2 + off[1]
-        holes = torch.from_numpy(rng.random((h, w)) < 0.15).to(dev)
-        holes[h // 3 : h // 2, w // 3 : w // 2] = True
-        tx = torch.where(holes, INVALID_LOCATION, tx)
-        ty = torch.where(holes, INVALID_LOCATION, ty)
-        fill = fill_holes(tx, ty, img)
-        modes = [  # (label, kwargs): the polish mode and Jacobi iterations
-            ("polish d=1", dict(only_occlusion=True, polish_init=fill)),
-            ("jacobi x3 d=2", dict(num_iter=3, only_occlusion=True,
-                                   dilation=2)),
-        ]
-        for label, kw in modes:
+    # kernel C: the polish, Jacobi and full-image modes
+    for h, w in WMF_SHAPES:
+        tx, ty, img, fill = wmf_inputs(h, w, dev)
+        for label, kw in wmf_modes(fill):
             k = cuda_wmf.weighted_median_filter_cuda(tx, ty, img, cfg.refine,
                                                      **kw)
             ref = cuda_wmf.weighted_median_filter(tx, ty, img, cfg.refine,
                                                   **kw)
-            diff = torch.maximum((k[0] - ref[0]).abs(), (k[1] - ref[1]).abs())
-            err = float(diff.max())
-            mismatch = float((diff > 0).float().mean())
-            ms = cuda_ms(lambda: cuda_wmf.weighted_median_filter_cuda(
+            same = torch.equal(k[0], ref[0]) and torch.equal(k[1], ref[1])
+            err = float(torch.maximum((k[0] - ref[0]).abs(),
+                                      (k[1] - ref[1]).abs()).max())
+            call_ms = cuda_ms(lambda: cuda_wmf.weighted_median_filter_cuda(
                 tx, ty, img, cfg.refine, **kw), 10)
+            ms, whole_ms, planes_ms = wmf_kernel_ms(
+                lambda it: cuda_wmf.weighted_median_filter_cuda(
+                    tx, ty, img, cfg.refine,
+                    **(kw if it is None else dict(kw, num_iter=it))))
             pms = cuda_ms(lambda: cuda_wmf.weighted_median_filter(
                 tx, ty, img, cfg.refine, **kw), 2)
-            log(f"wmf {label} {h}x{w}: {mismatch:.3%} of pixels differ "
-                f"(max {err:.0f} px)  kernel {ms:.3f} ms  plain {pms:.3f} ms")
-            check(mismatch < 0.005, f"kernel C mismatch {mismatch:.3%}")
+            work = wmf_work(tx, ty, img, cfg.refine, kw)
+            check(torch.equal(work.tx, ref[0]) and torch.equal(work.ty, ref[1]),
+                  "kernel C: the iterations one at a time differ")
+            # three float planes in and out, the image 3 floats
+            nbytes = h * w * (12 + 12 + 12)
+            bms, by = bound(work.ops, F32_FLOPS, nbytes)
+            all_ms = bound(work.ops_all_supports, F32_FLOPS, nbytes)[0]
+            every_ms = bound(work.ops_every_pixel, F32_FLOPS, nbytes)[0]
+            log(f"wmf {label} {h}x{w}: {'identical' if same else 'DIFFER'} "
+                f"(max |diff| {err:.0f} px)  listed {work.share:.2%} of the "
+                f"pixels ({', '.join(map(str, work.listed))} an iteration)  "
+                f"kernel {ms:.4f} ms (device: the call {whole_ms:.4f} less its"
+                f" planes {planes_ms:.4f}; the call by events {call_ms:.3f}"
+                f" ms)  plain {pms:.3f} ms  bound {bms:.5f} ms "
+                f"({by}; every support of the listed pixels: {all_ms:.5f} ms;"
+                f" at every pixel: {every_ms:.5f} ms)")
+            check(same and err == 0, f"kernel C {label} {h}x{w}: max |diff| "
+                  f"{err}, targets {'equal' if same else 'differ'}")
             if label.startswith("polish"):
-                # one iteration: every in-image support's weight, then
-                # each valid candidate against every support where the
-                # window holds a valid pixel
-                offs = _wmf_tables(cfg.refine, 1)[0]
-                valid = (tx >= 0) & (ty >= 0)
-                inside = window_count(torch.ones_like(valid), offs)
-                cands = window_count(valid, offs)
-                ops = (float(inside.sum()) * WMF_SUPPORT_OPS
-                       + float(cands.sum()) * len(offs) * WMF_PAIR_OPS)
-                # three float planes in and out, the image 3 floats
-                bms, by = bound(ops, F32_FLOPS, h * w * (12 + 12 + 12))
-                log(f"wmf {label} {h}x{w}: bound {bms:.3f} ms ({by})")
                 record("weighted_median_filter", err, ms, pms, bms, by)
+                # its ms is on another basis than the other rows': the
+                # call's events time, host-bound, goes beside it
+                rows["weighted_median_filter"].update(
+                    call_ms=call_ms, ms_basis="device time of the wrapper "
+                    "call less the same call at num_iter=0")
             else:
-                # the polish count for each iteration, on the valid mask
-                # that iteration starts from (the plain version, one
-                # iteration at a time)
-                offs = _wmf_tables(cfg.refine, kw["dilation"])[0]
-                inside = window_count(torch.ones_like(holes), offs)
-                ops, itx, ity = 0.0, tx, ty
-                for _ in range(kw["num_iter"]):
-                    valid = (itx >= 0) & (ity >= 0)
-                    ops += (float(inside.sum()) * WMF_SUPPORT_OPS
-                            + float(window_count(valid, offs).sum())
-                            * len(offs) * WMF_PAIR_OPS)
-                    itx, ity = cuda_wmf.weighted_median_filter(
-                        itx, ity, img, cfg.refine, num_iter=1,
-                        only_occlusion=True, dilation=kw["dilation"])
-                check(torch.equal(itx, ref[0]) and torch.equal(ity, ref[1]),
-                      "kernel C: the iterations one at a time differ")
-                bms, by = bound(ops, F32_FLOPS, h * w * (12 + 12 + 12))
-                log(f"wmf {label} {h}x{w}: bound {bms:.3f} ms ({by})")
-                rows["weighted_median_filter"]["max_abs_err"] = max(
-                    rows["weighted_median_filter"]["max_abs_err"], err)
+                row = rows["weighted_median_filter"]
+                row["max_abs_err"] = max(row["max_abs_err"], err)
     torch.cuda.synchronize()
     return rows
 
@@ -670,14 +792,18 @@ def flow_case(model, dev, h, w, dx, dy, seed, expect=None) -> None:
               f"launches per {w}x{h} pair, expected {n}")
 
 
-# the default path's hand kernels by their CUDA names, each with the
-# launch counts (rows of ``counters``) that launch it
+# the default path's hand kernels: a row label, the kernels' CUDA names it
+# sums, and the launch counts (rows of ``counters``) that launch each of
+# them once a launch
 PROFILED = {
-    "cost_terms_kernel": ("cost_terms",),
-    "residual_cost_kernel": ("residual_costs", "residual_costs_multiwarp"),
-    "flow_smooth_kernel": ("flow_smoothing",),
-    "flow_smooth_pair_kernel": ("flow_smoothing_paired",),
-    "wmf_iter_kernel": ("weighted_median_filter",),
+    "cost_terms_kernel": (("cost_terms_kernel",), ("cost_terms",)),
+    "residual_cost_kernel": (("residual_cost_kernel",),
+                             ("residual_costs", "residual_costs_multiwarp")),
+    "flow_smooth_kernel": (("flow_smooth_kernel",), ("flow_smoothing",)),
+    "flow_smooth_pair_kernel": (("flow_smooth_pair_kernel",),
+                                ("flow_smoothing_paired",)),
+    "kernel C (wmf_list_kernel + wmf_median_kernel)": (
+        ("wmf_list_kernel", "wmf_median_kernel"), ("weighted_median_filter",)),
 }
 
 
@@ -709,12 +835,13 @@ def profile_pair(model, dev, h, w, dx, dy, seed) -> None:
             continue
         total_us += e.self_device_time_total
         count += e.count
-        for name in PROFILED:
-            if name in e.key:
+        for name, (kernels, _) in PROFILED.items():
+            if any(k in e.key for k in kernels):
                 per[name][0] += e.self_device_time_total
                 per[name][1] += e.count
-    complete = all(per[name][1] == sum(launched[r] for r in rows)
-                   for name, rows in PROFILED.items())
+    complete = all(
+        per[name][1] == len(kernels) * sum(launched[r] for r in rows)
+        for name, (kernels, rows) in PROFILED.items())
     log(f"profile {w}x{h} shift ({dx},{dy}) [synthetic]: wall {wall:.1f} ms "
         f"under the profiler, {count} device events, device busy "
         f"{total_us / 1e3:.3f} ms; "
@@ -722,6 +849,29 @@ def profile_pair(model, dev, h, w, dx, dy, seed) -> None:
                     for name, (us, n) in per.items())
         + ("; every hand kernel's events match its launches" if complete
            else "; INCOMPLETE: events and launches differ"))
+
+
+def polish_holes(out: list, run) -> None:
+    """Run ``run`` and append to ``out`` (h, w, share) for each polish
+    call of kernel C in it: the share of the level's pixels that are
+    holes, which are the pixels kernel C lists.  The shares are read
+    after ``run``, so the run is not synchronised for them."""
+    from eppm_tpu_torch.ops import occlusion
+
+    real = occlusion.weighted_median_filter_auto
+    shares = []
+
+    def spy(tx, ty, *args, **kwargs):
+        if kwargs.get("polish_init") is not None:
+            shares.append((*tx.shape, ((tx < 0) | (ty < 0)).float().mean()))
+        return real(tx, ty, *args, **kwargs)
+
+    occlusion.weighted_median_filter_auto = spy
+    try:
+        run()
+    finally:
+        occlusion.weighted_median_filter_auto = real
+    out.extend((h, w, float(share)) for h, w, share in shares)
 
 
 PLANES_CFG = dict(dense_pass1_planes=True, dense_pass2_planes=True)
@@ -798,10 +948,15 @@ def phase_end_to_end(dev) -> dict:
         # pair (3 levels), 4 per 1080p pair (4 levels)
         smooth = ("flow_smoothing" if path == "radius 6"
                   else "flow_smoothing_paired")
-        launches[path] = drive(path, kernels, lambda: [
-            flow_case(model, dev, *case,
-                      expect={smooth: 3 if case[0] == 480 else 4})
-            for case in pcases])
+        holes = []
+        launches[path] = drive(path, kernels, lambda: polish_holes(
+            holes, lambda: [
+                flow_case(model, dev, *case,
+                          expect={smooth: 3 if case[0] == 480 else 4})
+                for case in pcases]))
+        log(f"kernel C's polish calls on the {path} path: "
+            + ", ".join(f"{h}x{w} {share:.2%}" for h, w, share in holes)
+            + " of the pixels listed (the holes)")
         if path == "default":
             profile_pair(model, dev, *cases[2])
     log("-- match_coarse at 4K, depth 3")
@@ -874,7 +1029,8 @@ SOURCES = {  # name: (source, the TPU kernel it replaces, the path it runs on)
                        "eppm_tpu/ops/pallas_smooth.py:38 (other radii)",
                        "radius 6"),
     "weighted_median_filter": ("eppm_tpu_torch/csrc/wmf.cu",
-                               "eppm_tpu/ops/pallas_wmf.py:52", "default"),
+                               "eppm_tpu/ops/pallas_wmf.py:52 and :316 "
+                               "(_wmf_kernel, _wmf_tile_kernel)", "default"),
     "residual_costs_planes": ("eppm_tpu_torch/csrc/cost.cu",
                               "eppm_tpu/ops/pallas_cost.py:60 "
                               "(plane tables, wrapper :389)", "planes"),
@@ -905,6 +1061,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **{k: r[k] for k in ("call_ms", "ms_basis") if k in r},
         })
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

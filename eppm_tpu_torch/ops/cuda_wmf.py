@@ -3,13 +3,18 @@
 
 Replaces both Pallas forms of ``eppm_tpu/ops/pallas_wmf.py``:
 ``_wmf_kernel`` (whole level in VMEM) and ``_wmf_tile_kernel`` (halo
-tiles).  The H100 needs neither form: one launch is one Jacobi iteration
-over the whole level, reading one set of planes and writing another, and
-this wrapper ping-pongs the two sets for ``num_iter`` launches.  Bound on
-the H100: arithmetic, n^2 = 6561 (candidate, support) pairs per pixel at
-the default radius 4.  Simple design: one thread per pixel, its window
-gathered once into per-thread arrays, the support sums in the plain
-version's partials, so the two agree bit for bit (``csrc/common.cuh``).
+tiles).  The H100 needs neither form: one launch of the entry point is one
+Jacobi iteration over the whole level, reading one set of planes and
+writing another, and this wrapper ping-pongs the two sets for
+``num_iter`` launches.  Bound on the H100: arithmetic, the (valid
+candidate, support) pairs of the pixels whose output can change.  Each
+iteration zeroes a device counter, lists those pixels on the device (the
+holes under ``only_occlusion``, every pixel otherwise; nothing is read
+back to the host) and gives each listed pixel a warp: the lanes gather the
+window into shared memory and sum the costs of candidates l, l + 32, ...
+in the plain version's partial sums, so the two agree bit for bit
+(``csrc/common.cuh``).  The list and the counter are allocated once per
+call.
 
 The plain version is ``weighted_median_filter`` (``ops/refine.py``);
 ``weighted_median_filter_auto`` takes the kernel for CUDA tensors and the
@@ -19,6 +24,7 @@ plain version for CPU tensors, and raises otherwise.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -36,10 +42,24 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = CudaKernel(
     "eppm_wmf_iteration",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I,
-     _I, _P],
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+     ctypes.c_float, _I, _I, _P],
 )
 MAX_WINDOW = 225
+
+
+@functools.lru_cache(maxsize=64)
+def _tables(radius: int, sigma_spatial: float, dilation: int):
+    """The window of kernel C, made once: its offsets as contiguous int32
+    (n, 2) rows (oy, ox) and their float32 spatial weights; raises unless
+    the kernel's table holds it."""
+    offs, gws = _wmf_tables(RefineConfig(wmf_radius=radius,
+                                         wmf_sigma_spatial=sigma_spatial),
+                            dilation)
+    if len(offs) > MAX_WINDOW or max(abs(v) for o in offs for v in o) >= 2**15:
+        raise ValueError(f"kernel C takes at most {MAX_WINDOW} offsets "
+                         "below 2^15")
+    return np.ascontiguousarray(offs, dtype=np.int32), gws
 
 
 def check_wmf_args(tx, ty, img, cfg: RefineConfig, polish_init=None,
@@ -53,10 +73,7 @@ def check_wmf_args(tx, ty, img, cfg: RefineConfig, polish_init=None,
         if t.dtype != torch.int32 or tuple(t.shape) != (h, w):
             raise ValueError(f"{name} must be int32 of shape {(h, w)}")
     check_tensor("img", img, torch.float32, (h, w, 3))
-    offs, _ = _wmf_tables(cfg, dilation)
-    if len(offs) > MAX_WINDOW or max(abs(v) for o in offs for v in o) >= 2**15:
-        raise ValueError(f"kernel C takes at most {MAX_WINDOW} offsets "
-                         "below 2^15")
+    _tables(cfg.wmf_radius, cfg.wmf_sigma_spatial, dilation)
 
 
 def weighted_median_filter_cuda(
@@ -74,8 +91,7 @@ def weighted_median_filter_cuda(
     require_cuda(tx, ty, img, *fills)
     check_wmf_args(tx, ty, img, cfg, polish_init, dilation)
     h, w = tx.shape
-    offs, gws = _wmf_tables(cfg, dilation)
-    offs = np.ascontiguousarray(offs, dtype=np.int32)
+    offs, gws = _tables(cfg.wmf_radius, cfg.wmf_sigma_spatial, dilation)
 
     ys, xs = grid(h, w, tx.device)
     valid = (tx >= 0) & (ty >= 0)
@@ -89,6 +105,9 @@ def weighted_median_filter_cuda(
         oy = torch.where(valid, (ty - ys).to(torch.float32), 0.0)
     cur = (ox.contiguous(), oy.contiguous(), valid.to(torch.float32))
     nxt = tuple(torch.empty_like(a) for a in cur)
+    # the pixels that can change, listed on the device each iteration
+    listed = torch.empty(h * w, dtype=torch.int32, device=tx.device)
+    count = torch.empty(1, dtype=torch.int32, device=tx.device)
     only_occ = int(only_occlusion or polish_init is not None)
     freeze = int(polish_init is not None)
     with torch.cuda.device(tx.device):
@@ -97,7 +116,8 @@ def weighted_median_filter_cuda(
             KERNEL.launch(
                 cur[0].data_ptr(), cur[1].data_ptr(), cur[2].data_ptr(),
                 img.data_ptr(), nxt[0].data_ptr(), nxt[1].data_ptr(),
-                nxt[2].data_ptr(), offs.ctypes.data, gws.ctypes.data,
+                nxt[2].data_ptr(), listed.data_ptr(), count.data_ptr(),
+                offs.ctypes.data, gws.ctypes.data,
                 len(offs), WMF_CHUNK, h, w, inv32(cfg.wmf_sigma_range**2),
                 only_occ, freeze,
                 stream,

@@ -21,6 +21,7 @@ from eppm_tpu_torch.config import DEFAULT_CONFIG as CFG
 from eppm_tpu_torch.config import INVALID_LOCATION, UNKNOWN_FLOW, RefineConfig
 from eppm_tpu_torch.ops import _build, cuda_cost, cuda_match, cuda_smooth
 from eppm_tpu_torch.ops import cuda_wmf, match, occlusion
+from eppm_tpu_torch.ops._util import grid
 from eppm_tpu_torch.ops.census import census_transform
 from eppm_tpu_torch.ops.cost import pack_frame
 from eppm_tpu_torch.ops.dense import center_out_offsets
@@ -451,19 +452,35 @@ def test_kernel_b_matches_plain(cuda, radius, h, w):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode", ["polish", "jacobi"])
+@pytest.mark.parametrize("level", ["holes", "no hole", "all holes", "37x70",
+                                   "7x5", "radius 7"])
+@pytest.mark.parametrize("mode", ["polish", "jacobi", "full"])
 @pytest.mark.parametrize("dilation", [1, 2])
-def test_kernel_c_matches_plain(cuda, mode, dilation):
-    tx, ty, img = _wmf_inputs(40, 56, device=cuda)
-    kw = dict(num_iter=3, only_occlusion=True, dilation=dilation)
+def test_kernel_c_matches_plain(cuda, mode, dilation, level):
+    """Identical to the plain version (``torch.equal``) in the polish and
+    Jacobi modes (3 iterations, only the holes listed) and the full-image
+    mode (2 iterations, every pixel listed): on a 40x56 level with holes,
+    with no hole (an empty list under ``only_occlusion``), with every
+    pixel a hole, at 37x70 and at 7x5 (smaller than the window), and at
+    radius 7 (225 offsets, the kernel's largest window)."""
+    h, w = {"37x70": (37, 70), "7x5": (7, 5)}.get(level, (40, 56))
+    tx, ty, img = _wmf_inputs(h, w, device=cuda)
+    if level == "no hole":
+        ys, xs = grid(h, w, cuda)
+        tx, ty = xs + 2, ys + 1
+    elif level == "all holes":
+        tx = torch.full_like(tx, INVALID_LOCATION)
+        ty = torch.full_like(ty, INVALID_LOCATION)
+    cfg = RefineConfig(wmf_radius=7) if level == "radius 7" else CFG.refine
+    kw = dict(num_iter=2 if mode == "full" else 3,
+              only_occlusion=mode != "full", dilation=dilation)
     if mode == "polish":
         kw["polish_init"] = fill_holes(tx, ty, img)
     n = cuda_wmf.KERNEL.launches
-    got = cuda_wmf.weighted_median_filter_auto(tx, ty, img, CFG.refine, **kw)
-    assert cuda_wmf.KERNEL.launches == n + 3
-    want = cuda_wmf.weighted_median_filter(tx, ty, img, CFG.refine, **kw)
-    differ = (got[0] != want[0]) | (got[1] != want[1])
-    assert float(differ.float().mean()) < 0.005
+    got = cuda_wmf.weighted_median_filter_auto(tx, ty, img, cfg, **kw)
+    assert cuda_wmf.KERNEL.launches == n + kw["num_iter"]
+    want = cuda_wmf.weighted_median_filter(tx, ty, img, cfg, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.gpu

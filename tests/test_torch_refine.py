@@ -159,14 +159,16 @@ def test_flow_smoothing_matches_pallas_kernel_interpret(rng):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("mode", ["polish", "jacobi"])
+@pytest.mark.parametrize("mode", ["polish", "jacobi", "full"])
 @pytest.mark.parametrize("dilation", [1, 2])
 def test_weighted_median_filter_matches_jax(rng, mode, dilation):
-    """Both modes of kernel C's plain version, 3 Jacobi iterations."""
+    """The modes of kernel C's plain version, 3 iterations: the polish,
+    Jacobi over the holes, and the full image (``only_occlusion=False``,
+    ``refine.wmf_coarse_full_iters``)."""
     h, w = 28, 36
     tx, ty = _targets(rng, h, w, 0.2)
     img = _img(rng, h, w)
-    kw = dict(num_iter=3, only_occlusion=True, dilation=dilation)
+    kw = dict(num_iter=3, only_occlusion=mode != "full", dilation=dilation)
     if mode == "polish":
         fill = jref.fill_holes(J(tx), J(ty), J(img))
         jkw = dict(kw, polish_init=fill)
