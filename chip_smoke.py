@@ -16,7 +16,8 @@ final line is not printed):
    paired kernel at the default radius 10 and the one-pass kernel at
    radius 6 (the launch counts say which ran); kernel C identical
    targets in its polish, Jacobi and full-image modes, with the share of
-   pixels it lists; the global argmax identical indices (kernel D at N1
+   pixels it lists, and in its full-image mode at the fine levels of
+   1080p (540x960, 1080x1920: ``fine_level_wmf``); the global argmax identical indices (kernel D at N1
    = N2 = 1200, 8160 and 129,600); with each one's time beside the plain
    version's (CUDA events, after a warm-up; kernel A's two passes also
    apart; kernel C's wrapper call is host-bound, so its time is device
@@ -32,9 +33,10 @@ final line is not printed):
    and launches per pair, kernel C's two kernels summed):
    - ``EPPMFlow`` under ``DEFAULT_CONFIG``, and with the reference's
      plane-hypothesis re-search in both dense passes
-     (``dense_pass1_planes``, ``dense_pass2_planes``), at 640x480 and
-     1920x1080 on synthetic pairs with a known integer translation (a
-     small and a large one at each size);
+     (``dense_pass1_planes``, ``dense_pass2_planes``), on synthetic pairs
+     with a known integer translation: (3, -2), (37, 21) and (-70, 44)
+     at 640x480, (5, 3) at 1920x1080 (the temporal path below runs
+     (-70, 44) at 1920x1080);
    - ``EPPMFlow`` with the gathered plane-fitting refine
      (``refine_impl="gather"``), and with the smoothing radius 6
      (``refine.blf_sigma_spatial=3.0``), at 640x480;
@@ -47,18 +49,37 @@ final line is not printed):
      3840x2160 pair under ``pyramid.auto_depth_dim=0`` (540x960, global
      proposals on a stride-2 grid of 129,600 targets): the known shift
      recovered in the interior;
+   - the temporal warm start: 1080p streams of 5 frames of a constant
+     motion, (5, 3) and (-70, 44) a frame, through ``EPPMFlow`` cold pair
+     after pair, then warm-started (``compute_flow(init_flow=...)``, the
+     previous pair's flow): ms per pair of both, and each warm pair's
+     interior EPE < 1 with no global stage run;
+   - the stream command line (``cli.main(["--frames-dir", ...,
+     "--out-dir", ..., "--temporal"])``) on 5 PPM frames at 640x480: a
+     .flo per pair with the motion, the fps line logged;
+   - the legacy WMF order (``refine.wmf_fill_first=False``: kernel C
+     ``wmf_coarse_iters`` times a pair) and the fine-level WMF
+     (``fine_level_wmf=True``: kernel C once more a fine level), at
+     640x480 and 1080p;
+   - ``subpixel_refine`` and ``dense_subpixel_fit`` on half-pixel shifts
+     at 640x480 and 1080p, the interior EPE beside the integer default's;
 5. agreement: the port on the card against the port on the CPU (plain
    versions) at 192x256, under ``DEFAULT_CONFIG`` and with both plane
-   flags, and under ``DEFAULT_CONFIG`` on a pair with black regions: at
+   flags, and under ``DEFAULT_CONFIG`` on a pair with black regions,
+   warm-started from an init holding unknown flow and values beyond
+   +-2^31 (with and without the global stages), in the legacy WMF
+   order, with the fine-level WMF and with each subpixel stage: at
    least 98% of pixels within 1e-3 and mean |diff| < 0.05;
-   ``match_coarse`` at 60x80 returns the same targets on both, and so
-   does ``global_match_bidi`` on the descriptors of frames with black
-   regions (``eppm_tpu_torch/testing.py::dark_rows``), where the
-   float64 sums are not exact in every order.
+   ``match_coarse`` at 60x80 returns the same targets on both, so does
+   ``match_coarse_bidi`` warm-started from such an init, and so does
+   ``global_match_bidi`` on the descriptors of frames with black regions
+   (``eppm_tpu_torch/testing.py::dark_rows``), where the float64 sums
+   are not exact in every order.
 
-The line before the last is one JSON object with a row per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  The synthetic pairs are
-smooth textures made from a seed with numpy; no frame file is read.
+Each phase logs its seconds.  The line before the last is one JSON object
+with a row per kernel; the last line is ``{"ok": true, "device": {...}}``.
+The synthetic pairs are smooth textures made from a seed with numpy; the
+stream's frames are written to a temporary directory and read back.
 """
 
 from __future__ import annotations
@@ -322,8 +343,10 @@ def smooth_inputs(h, w, dev):
 
 
 # kernel C's shapes: the coarse levels of 640x480 (whole-level Pallas form)
-# and of 1080p (tiled Pallas form)
+# and of 1080p (tiled Pallas form); with fine_level_wmf, the full image at
+# the fine levels of 1080p up to level 0
 WMF_SHAPES = [(120, 160), (135, 240)]
+WMF_FINE_SHAPES = [(540, 960), (1080, 1920)]
 
 
 def wmf_inputs(h, w, dev):
@@ -655,53 +678,63 @@ def phase_kernels(dev) -> dict:
               f"{err}, {differ:.2%} differ")
         record(ran[0], err, ms, pms, bms, by)
 
-    # kernel C: the polish, Jacobi and full-image modes
+    def kernel_c(h, w, tx, ty, img, label, kw):
+        """Kernel C at one shape and mode: identical to its plain version;
+        its device time, the call's events time, the plain version's time
+        and the bound at the pixels it lists.  Returns max |diff|."""
+        k = cuda_wmf.weighted_median_filter_cuda(tx, ty, img, cfg.refine,
+                                                 **kw)
+        ref = cuda_wmf.weighted_median_filter(tx, ty, img, cfg.refine, **kw)
+        same = torch.equal(k[0], ref[0]) and torch.equal(k[1], ref[1])
+        err = float(torch.maximum((k[0] - ref[0]).abs(),
+                                  (k[1] - ref[1]).abs()).max())
+        call_ms = cuda_ms(lambda: cuda_wmf.weighted_median_filter_cuda(
+            tx, ty, img, cfg.refine, **kw), 10)
+        ms, whole_ms, planes_ms = wmf_kernel_ms(
+            lambda it: cuda_wmf.weighted_median_filter_cuda(
+                tx, ty, img, cfg.refine,
+                **(kw if it is None else dict(kw, num_iter=it))))
+        pms = cuda_ms(lambda: cuda_wmf.weighted_median_filter(
+            tx, ty, img, cfg.refine, **kw), 2)
+        work = wmf_work(tx, ty, img, cfg.refine, kw)
+        check(torch.equal(work.tx, ref[0]) and torch.equal(work.ty, ref[1]),
+              "kernel C: the iterations one at a time differ")
+        # three float planes in and out, the image 3 floats
+        nbytes = h * w * (12 + 12 + 12)
+        bms, by = bound(work.ops, F32_FLOPS, nbytes)
+        all_ms = bound(work.ops_all_supports, F32_FLOPS, nbytes)[0]
+        every_ms = bound(work.ops_every_pixel, F32_FLOPS, nbytes)[0]
+        log(f"wmf {label} {h}x{w}: {'identical' if same else 'DIFFER'} "
+            f"(max |diff| {err:.0f} px)  listed {work.share:.2%} of the "
+            f"pixels ({', '.join(map(str, work.listed))} an iteration)  "
+            f"kernel {ms:.4f} ms (device: the call {whole_ms:.4f} less its"
+            f" planes {planes_ms:.4f}; the call by events {call_ms:.3f}"
+            f" ms)  plain {pms:.3f} ms  bound {bms:.5f} ms "
+            f"({by}, {bms / ms:.1%} of it reached; every support of the "
+            f"listed pixels: {all_ms:.5f} ms; at every pixel: "
+            f"{every_ms:.5f} ms)")
+        check(same and err == 0, f"kernel C {label} {h}x{w}: max |diff| "
+              f"{err}, targets {'equal' if same else 'differ'}")
+        if label.startswith("polish"):
+            record("weighted_median_filter", err, ms, pms, bms, by)
+            # its ms is on another basis than the other rows': the
+            # call's events time, host-bound, goes beside it
+            rows["weighted_median_filter"].update(
+                call_ms=call_ms, ms_basis="device time of the wrapper "
+                "call less the same call at num_iter=0")
+        else:
+            row = rows["weighted_median_filter"]
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+
+    # kernel C: the polish, Jacobi and full-image modes at the coarse
+    # levels, then the full image at the fine levels (fine_level_wmf)
     for h, w in WMF_SHAPES:
         tx, ty, img, fill = wmf_inputs(h, w, dev)
         for label, kw in wmf_modes(fill):
-            k = cuda_wmf.weighted_median_filter_cuda(tx, ty, img, cfg.refine,
-                                                     **kw)
-            ref = cuda_wmf.weighted_median_filter(tx, ty, img, cfg.refine,
-                                                  **kw)
-            same = torch.equal(k[0], ref[0]) and torch.equal(k[1], ref[1])
-            err = float(torch.maximum((k[0] - ref[0]).abs(),
-                                      (k[1] - ref[1]).abs()).max())
-            call_ms = cuda_ms(lambda: cuda_wmf.weighted_median_filter_cuda(
-                tx, ty, img, cfg.refine, **kw), 10)
-            ms, whole_ms, planes_ms = wmf_kernel_ms(
-                lambda it: cuda_wmf.weighted_median_filter_cuda(
-                    tx, ty, img, cfg.refine,
-                    **(kw if it is None else dict(kw, num_iter=it))))
-            pms = cuda_ms(lambda: cuda_wmf.weighted_median_filter(
-                tx, ty, img, cfg.refine, **kw), 2)
-            work = wmf_work(tx, ty, img, cfg.refine, kw)
-            check(torch.equal(work.tx, ref[0]) and torch.equal(work.ty, ref[1]),
-                  "kernel C: the iterations one at a time differ")
-            # three float planes in and out, the image 3 floats
-            nbytes = h * w * (12 + 12 + 12)
-            bms, by = bound(work.ops, F32_FLOPS, nbytes)
-            all_ms = bound(work.ops_all_supports, F32_FLOPS, nbytes)[0]
-            every_ms = bound(work.ops_every_pixel, F32_FLOPS, nbytes)[0]
-            log(f"wmf {label} {h}x{w}: {'identical' if same else 'DIFFER'} "
-                f"(max |diff| {err:.0f} px)  listed {work.share:.2%} of the "
-                f"pixels ({', '.join(map(str, work.listed))} an iteration)  "
-                f"kernel {ms:.4f} ms (device: the call {whole_ms:.4f} less its"
-                f" planes {planes_ms:.4f}; the call by events {call_ms:.3f}"
-                f" ms)  plain {pms:.3f} ms  bound {bms:.5f} ms "
-                f"({by}; every support of the listed pixels: {all_ms:.5f} ms;"
-                f" at every pixel: {every_ms:.5f} ms)")
-            check(same and err == 0, f"kernel C {label} {h}x{w}: max |diff| "
-                  f"{err}, targets {'equal' if same else 'differ'}")
-            if label.startswith("polish"):
-                record("weighted_median_filter", err, ms, pms, bms, by)
-                # its ms is on another basis than the other rows': the
-                # call's events time, host-bound, goes beside it
-                rows["weighted_median_filter"].update(
-                    call_ms=call_ms, ms_basis="device time of the wrapper "
-                    "call less the same call at num_iter=0")
-            else:
-                row = rows["weighted_median_filter"]
-                row["max_abs_err"] = max(row["max_abs_err"], err)
+            kernel_c(h, w, tx, ty, img, label, kw)
+    for h, w in WMF_FINE_SHAPES:
+        tx, ty, img, _ = wmf_inputs(h, w, dev)
+        kernel_c(h, w, tx, ty, img, "full d=1, fine level", dict(num_iter=1))
     torch.cuda.synchronize()
     return rows
 
@@ -756,13 +789,15 @@ def drive(path: str, kernels, run) -> dict:
     return launches
 
 
-def flow_case(model, dev, h, w, dx, dy, seed, expect=None) -> None:
+def flow_case(model, dev, h, w, dx, dy, seed, expect=None,
+              pair=None) -> float:
     """One synthetic pair through ``model`` (a warm-up run, then a timed
     one), gated on the warp error and on ``expect``, launches per pair of
-    some kernels by their rows' names."""
+    some kernels by their rows' names.  ``pair``: the frames, else a
+    ``shifted_pair``.  Returns the interior EPE."""
     from eppm_tpu_torch.metrics import warp_error
 
-    f1, f2 = shifted_pair(h, w, dx, dy, seed)
+    f1, f2 = pair if pair is not None else shifted_pair(h, w, dx, dy, seed)
     img1 = torch.from_numpy(f1).to(dev)
     img2 = torch.from_numpy(f2).to(dev)
     model(img1, img2)  # first run: allocator and library warm-up
@@ -790,6 +825,7 @@ def flow_case(model, dev, h, w, dx, dy, seed, expect=None) -> None:
     for name, n in (expect or {}).items():
         check(per_pair.get(name, 0) == n, f"{name}: {per_pair.get(name, 0)} "
               f"launches per {w}x{h} pair, expected {n}")
+    return epe
 
 
 # the default path's hand kernels: a row label, the kernels' CUDA names it
@@ -914,16 +950,147 @@ def match_coarse_depth3(dev, h=2160, w=3840, dx=-96, dy=64) -> None:
     check(hit >= 0.9, f"match_coarse recovered the shift on only {hit:.2%}")
 
 
+def sequence(h: int, w: int, dx: int, dy: int, n: int, seed: int):
+    """``n`` uint8 frames of a constant motion: frame k(p) = frame k+1(p +
+    (dx, dy)), cut from one seeded texture."""
+    c = n // 2
+    m = (c + 1) * max(abs(dx), abs(dy)) + 8
+    big = (texture(h + 2 * m, w + 2 * m, seed) * 255).astype(np.uint8)
+    return [np.ascontiguousarray(big[m + (c - k) * dy : m + (c - k) * dy + h,
+                                     m + (c - k) * dx : m + (c - k) * dx + w])
+            for k in range(n)]
+
+
+def half_pixel_pair(h: int, w: int, sx2: int, sy2: int, seed: int):
+    """uint8 (frame1, frame2) with a shift of (sx2 / 2, sy2 / 2): a texture
+    at twice the resolution shifted by (sx2, sy2) px, then averaged 2x2."""
+    m = max(abs(sx2), abs(sy2)) + 16
+    big = texture(2 * h + 2 * m, 2 * w + 2 * m, seed)
+
+    def pool(a):
+        return (a.reshape(h, 2, w, 2, 3).mean(axis=(1, 3)) * 255).round() \
+            .astype(np.uint8)
+
+    f2 = pool(big[m : m + 2 * h, m : m + 2 * w])
+    f1 = pool(big[m + sy2 : m + sy2 + 2 * h, m + sx2 : m + sx2 + 2 * w])
+    return f1, f2
+
+
+def global_stage_calls(out: list, run) -> None:
+    """Run ``run`` and append to ``out`` each call of the bidirectional
+    global descriptor match in it (the stage a warm start skips)."""
+    from eppm_tpu_torch.ops import match
+
+    real = match.global_match_bidi
+
+    def spy(*args, **kwargs):
+        out.append(args[0].shape[:2])
+        return real(*args, **kwargs)
+
+    match.global_match_bidi = spy
+    try:
+        run()
+    finally:
+        match.global_match_bidi = real
+
+
+def temporal_case(dev, h, w, dx, dy, seed, n=5) -> None:
+    """A constant-motion sequence of ``n`` frames through ``EPPMFlow``,
+    cold pair after pair, then warm-started: pair 1 cold, each later pair
+    from the previous pair's flow (``compute_flow(init_flow=...)``).  Logs
+    ms, interior EPE and launches per pair; gates each pair's warp error,
+    and each warm pair on interior EPE < 1 with no global stage run."""
+    from eppm_tpu_torch.metrics import warp_error
+    from eppm_tpu_torch.pipeline import EPPMFlow
+
+    frames = sequence(h, w, dx, dy, n, seed)
+    imgs = [torch.from_numpy(f).to(dev) for f in frames]
+    model = EPPMFlow()
+    model(imgs[0], imgs[1])  # allocator and library warm-up
+    torch.cuda.synchronize()
+    for mode in ("cold", "warm"):
+        prev, rows = None, []
+        for k in range(n - 1):
+            calls = []
+            before = {name: c.launches for name, c in counters().items()}
+            t0 = time.perf_counter()
+            model.set_data(imgs[k], imgs[k + 1])
+            global_stage_calls(calls, lambda: rows.append(
+                model.compute_flow(init_flow=prev)))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = {name: c.launches - before[name]
+                        for name, c in counters().items()
+                        if c.launches > before[name]}
+            flow = rows[-1]
+            if mode == "warm":
+                prev = flow
+            f = flow.cpu().numpy()
+            check(bool(np.isfinite(f).all()), "non-finite flow")
+            a = frames[k].astype(np.float64) / 255.0
+            b = frames[k + 1].astype(np.float64) / 255.0
+            we, we0 = warp_error(a, b, f), warp_error(a, b, np.zeros_like(f))
+            epe = interior_epe(f, dx, dy, 16)
+            warm = mode == "warm" and k > 0
+            log(f"temporal {w}x{h} shift ({dx},{dy}) [synthetic] {mode} "
+                f"pair {k + 1}{' (warm-started)' if warm else ''}: {ms:.1f} "
+                f"ms  warp error ratio {we / we0:.3f}  interior EPE "
+                f"{epe:.4f}  global stage calls {len(calls)}  launches "
+                f"{launches}")
+            check(we < 0.6 * we0, f"warp error {we:.4f} >= 0.6 x {we0:.4f}")
+            if warm:
+                check(epe < 1.0, f"warm pair {k + 1}: interior EPE {epe}")
+                check(not calls, f"warm pair {k + 1} ran the global stage")
+
+
+def stream_case(dev, h=480, w=640, dx=3, dy=-2, seed=SEED + 30,
+                n=5) -> None:
+    """``python -m eppm_tpu_torch.cli --frames-dir D --out-dir O
+    --temporal``, in process, on ``n`` PPM frames of a constant motion in
+    a temporary directory: one .flo per pair, named by its first frame,
+    each with the motion (interior EPE < 1); the fps line logged."""
+    import contextlib
+    import io as _io
+    import os
+    import tempfile
+
+    from eppm_tpu_torch import cli
+    from eppm_tpu_torch.io import read_flo, write_ppm
+
+    with tempfile.TemporaryDirectory() as tmp:
+        frames = os.path.join(tmp, "frames")
+        out = os.path.join(tmp, "flow")
+        os.mkdir(frames)
+        for k, f in enumerate(sequence(h, w, dx, dy, n, seed)):
+            write_ppm(os.path.join(frames, f"frame{k:03d}.ppm"), f)
+        buf = _io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["--frames-dir", frames, "--out-dir", out,
+                           "--temporal"])
+        report = json.loads(buf.getvalue().strip().splitlines()[-1])
+        names = sorted(os.listdir(out))
+        epes = [interior_epe(read_flo(os.path.join(out, name)), dx, dy, 16)
+                for name in names]
+    log(f"stream CLI {w}x{h} shift ({dx},{dy}) [synthetic], {n} frames, "
+        f"--temporal: {report}; .flo {names}; interior EPE "
+        + ", ".join(f"{e:.4f}" for e in epes))
+    check(rc == 0 and report["pairs"] == n - 1, f"stream report {report}")
+    check(names == [f"frame{k:03d}.flo" for k in range(n - 1)],
+          f"stream outputs {names}")
+    check(all(e < 1.0 for e in epes), f"stream interior EPE {epes}")
+
+
 def phase_end_to_end(dev) -> dict:
     log("== phase 4: end to end (synthetic pairs), one path at a time")
     from eppm_tpu_torch.config import DEFAULT_CONFIG as cfg
-    from eppm_tpu_torch.pipeline import EPPMFlow
+    from eppm_tpu_torch.pipeline import EPPMFlow, compute_flow
 
-    cases = [  # (h, w, dx, dy, seed): a small and a large translation
+    cases = [  # (h, w, dx, dy, seed): small and large translations; the
+        # large 1080p one (-70, 44) runs on the temporal path's cold pairs
         (480, 640, 3, -2, SEED + 10),
         (480, 640, 37, 21, SEED + 11),
         (1080, 1920, 5, 3, SEED + 12),
-        (1080, 1920, -70, 44, SEED + 13),
+        (480, 640, -70, 44, SEED + 13),
     ]
     default = ["cost_terms", "residual_costs", "residual_costs_multiwarp",
                "flow_smoothing_paired", "weighted_median_filter"]
@@ -964,13 +1131,76 @@ def phase_end_to_end(dev) -> dict:
         "match_coarse", ["cost_terms", "residual_costs",
                          "residual_costs_multiwarp", "global_argmax"],
         lambda: match_coarse_depth3(dev))
+
+    log("-- temporal: a 1080p stream, cold, then warm-started")
+    launches["temporal"] = drive("temporal", default, lambda: [
+        temporal_case(dev, 1080, 1920, dx, dy, SEED + 31 + i)
+        for i, (dx, dy) in enumerate([(5, 3), (-70, 44)])])
+    log("-- stream CLI: --frames-dir --out-dir --temporal")
+    launches["stream CLI"] = drive("stream CLI", default,
+                                   lambda: stream_case(dev))
+
+    small, large = cases[0], cases[2]
+    legacy = dataclasses.replace(cfg, refine=dataclasses.replace(
+        cfg.refine, wmf_fill_first=False))
+    log("-- legacy WMF: refine.wmf_fill_first=False")
+    model = EPPMFlow(legacy)
+    # one kernel C launch per Jacobi iteration at the coarse level
+    launches["legacy WMF"] = drive("legacy WMF", default, lambda: [
+        flow_case(model, dev, *case, expect={
+            "weighted_median_filter": cfg.refine.wmf_coarse_iters,
+            "flow_smoothing_paired": 3 if case[0] == 480 else 4})
+        for case in (small, large)])
+    log("-- fine-level WMF: fine_level_wmf=True")
+
+    def fine(img1, img2):
+        return compute_flow(img1, img2, cfg, fine_level_wmf=True)
+
+    # kernel C: the coarse polish, then one iteration a fine level (2 at
+    # 640x480, 3 at 1080p)
+    launches["fine-level WMF"] = drive("fine-level WMF", default, lambda: [
+        flow_case(fine, dev, *case, expect={
+            "weighted_median_filter": 3 if case[0] == 480 else 4,
+            "flow_smoothing_paired": 3 if case[0] == 480 else 4})
+        for case in (small, large)])
+
+    # half-pixel shifts: the integer default's EPE beside each subpixel
+    # stage's
+    halves = [(480, 640, 7, -3, SEED + 40), (1080, 1920, 11, 5, SEED + 41)]
+    pairs = {case: half_pixel_pair(*case) for case in halves}
+    default_model = EPPMFlow(cfg)
+    base = {}
+    log("-- subpixel: the integer default on half-pixel pairs")
+    for case in halves:
+        h, w, sx2, sy2, seed = case
+        base[case] = flow_case(default_model, dev, h, w, sx2 / 2, sy2 / 2,
+                               seed, pair=pairs[case])
+    for name, change in (("subpixel_refine", dict(subpixel_refine=True)),
+                         ("dense_subpixel_fit",
+                          dict(dense_subpixel_fit=True))):
+        log(f"-- subpixel: {name}=True")
+        model = EPPMFlow(dataclasses.replace(cfg, **change))
+        epes = {}
+        launches[name] = drive(name, default, lambda: [
+            epes.__setitem__(case, flow_case(
+                model, dev, case[0], case[1], case[2] / 2, case[3] / 2,
+                case[4], pair=pairs[case],
+                expect={"flow_smoothing_paired":
+                        3 if case[0] == 480 else 4}))
+            for case in halves])
+        for case in halves:
+            log(f"{name} {case[1]}x{case[0]} shift ({case[2] / 2},"
+                f"{case[3] / 2}): interior EPE {epes[case]:.4f} against the "
+                f"integer default's {base[case]:.4f}")
     return launches
 
 
 def phase_agreement(dev) -> None:
     log("== phase 5: the port on the card against the port on the CPU")
     from eppm_tpu_torch.config import DEFAULT_CONFIG as cfg
-    from eppm_tpu_torch.ops.match import global_match_bidi, match_coarse
+    from eppm_tpu_torch.config import UNKNOWN_FLOW
+    from eppm_tpu_torch.ops.match import (global_match_bidi, match_coarse,
+                                          match_coarse_bidi)
     from eppm_tpu_torch.pipeline import compute_flow
     from eppm_tpu_torch.testing import dark_rows
 
@@ -991,7 +1221,62 @@ def phase_agreement(dev) -> None:
         check(agree >= 0.98, f"{name}: only {agree:.2%} of pixels agree")
         check(float(d.mean()) < 0.05, f"{name}: mean |diff| {float(d.mean())}")
 
+    # the paths this slice added: the warm start from an init holding
+    # unknown flow and values beyond +-2^31 (with and without skipping the
+    # global stages), the legacy WMF order, the fine-level WMF and both
+    # subpixel stages
+    f1, f2 = shifted_pair(h, w, 3, -2, SEED + 22)
+    init = compute_flow(torch.from_numpy(f1), torch.from_numpy(f2), cfg)
+    init[:12, :20] = UNKNOWN_FLOW
+    init[40:44, 30:60, 0] = -3.7e9
+    init[90, 100:140, 1] = 3.7e9
+    no_skip = dataclasses.replace(cfg, match=dataclasses.replace(
+        cfg.match, warm_skip_global=False))
+    legacy = dataclasses.replace(cfg, refine=dataclasses.replace(
+        cfg.refine, wmf_fill_first=False))
+    for name, pcfg, kw in [
+            ("warm start", cfg, dict(init_flow=init)),
+            ("warm start, global stages kept", no_skip,
+             dict(init_flow=init)),
+            ("legacy WMF", legacy, {}),
+            ("fine-level WMF", cfg, dict(fine_level_wmf=True)),
+            ("subpixel_refine", dataclasses.replace(cfg, subpixel_refine=True),
+             {}),
+            ("dense_subpixel_fit",
+             dataclasses.replace(cfg, dense_subpixel_fit=True), {})]:
+        gkw = {k: (v.to(dev) if torch.is_tensor(v) else v)
+               for k, v in kw.items()}
+        gpu = compute_flow(torch.from_numpy(f1).to(dev),
+                           torch.from_numpy(f2).to(dev), pcfg,
+                           **gkw).cpu().numpy()
+        cpu = compute_flow(torch.from_numpy(f1), torch.from_numpy(f2), pcfg,
+                           **kw).numpy()
+        d = np.abs(gpu - cpu).max(axis=-1)
+        agree = float((d < 1e-3).mean())
+        log(f"{h}x{w} {name}: {agree:.4%} of pixels agree within 1e-3, "
+            f"mean |diff| {float(d.mean()):.3g}, max {float(d.max()):.3g}")
+        check(agree >= 0.98, f"{name}: only {agree:.2%} of pixels agree")
+        check(float(d.mean()) < 0.05, f"{name}: mean |diff| {float(d.mean())}")
+
     (i1, p1), (i2, p2) = _packs(60, 80, -5, 3, SEED + 21, dev)
+    warm = torch.zeros((60, 80, 2))
+    warm[..., 0], warm[..., 1] = -4.0, 2.0
+    warm[:6, :9] = UNKNOWN_FLOW
+    warm[20:22, 10:30, 0] = -3.7e9
+    for skip in (True, False):
+        mcfg = dataclasses.replace(cfg.match, warm_skip_global=skip)
+        gpu = match_coarse_bidi(i1, i2, cfg.cost, mcfg, p1, p2,
+                                init_flow=warm.to(dev))
+        cpu = match_coarse_bidi(i1.cpu(), i2.cpu(), cfg.cost, mcfg, p1.cpu(),
+                                p2.cpu(), init_flow=warm)
+        same = [bool(torch.equal(g.cpu(), c))
+                for gd, cd in zip(gpu, cpu) for g, c in zip(gd[:2], cd[:2])]
+        log(f"match_coarse_bidi 60x80, warm start (warm_skip_global={skip}):"
+            f" targets {'identical' if all(same) else 'DIFFER'} on the card "
+            "and the CPU")
+        check(all(same), "warm-started match targets differ between card "
+              "and CPU")
+
     gpu = match_coarse(i1, i2, cfg.cost, cfg.match, p1, p2)
     cpu = match_coarse(i1.cpu(), i2.cpu(), cfg.cost, cfg.match, p1.cpu(),
                        p2.cpu())
@@ -1047,11 +1332,18 @@ def main() -> int:
 
     t0 = time.perf_counter()
     dev = torch.device("cuda", 0)
-    smi = phase_versions()
-    phase_build()
-    rows = phase_kernels(dev)
-    launches = phase_end_to_end(dev)
-    phase_agreement(dev)
+
+    def timed(phase, *args):
+        t = time.perf_counter()
+        out = phase(*args)
+        log(f"{phase.__name__}: {time.perf_counter() - t:.1f} s")
+        return out
+
+    smi = timed(phase_versions)
+    timed(phase_build)
+    rows = timed(phase_kernels, dev)
+    launches = timed(phase_end_to_end, dev)
+    timed(phase_agreement, dev)
     kernels = []
     for name, (source, replaces, path) in SOURCES.items():
         r = rows[name]

@@ -1,12 +1,18 @@
-"""Command line for one frame pair (the single-pair subset of
-``eppm_tpu/cli.py``):
+"""Command line for one frame pair or a stream of frames (the single-pair
+and streaming parts of ``eppm_tpu/cli.py``):
 
-  python -m eppm_tpu_torch.cli f1.ppm f2.ppm -o flow.flo [--set k=v]
-                                [--time] [--device cuda|cpu]
+  python -m eppm_tpu_torch.cli f1.ppm f2.ppm -o flow.flo [--viz flow.png]
+                                [--set k=v] [--time] [--device cuda|cpu]
+  python -m eppm_tpu_torch.cli --frames-dir DIR --out-dir OUT [--temporal]
+                                [--exact-readback] [--set k=v] [--device ...]
 
-The flow runs on the CUDA device by default and raises where there is
-none; ``--device cpu`` runs the plain PyTorch versions of the kernels.
-``--set`` takes dotted config paths, e.g. ``--set refine.blf_sigma_spatial=3.0``.
+Frames are PPM/PGM/PNM or PNG.  The stream computes the flow of every
+consecutive pair of DIR's frames (sorted by name) and writes OUT/<first
+frame's name>.flo for each; ``--temporal`` warm-starts each pair from the
+previous pair's flow, which stays on the device.  The flow runs on the
+CUDA device by default and raises where there is none; ``--device cpu``
+runs the plain PyTorch versions of the kernels.  ``--set`` takes dotted
+config paths, e.g. ``--set refine.blf_sigma_spatial=3.0``.
 """
 
 from __future__ import annotations
@@ -15,6 +21,9 @@ import argparse
 import ast
 import dataclasses
 import json
+import os
+import queue
+import threading
 import time
 from typing import Any, List, Optional
 
@@ -22,7 +31,9 @@ import numpy as np
 import torch
 
 from .config import DEFAULT_CONFIG, EPPMConfig
-from .io import read_ppm, write_flo
+from .io import (IMAGE_EXTS, read_image, read_image_batch, write_flo,
+                 write_png, write_ppm)
+from .ops.color import flow_to_color
 from .pipeline import compute_flow
 
 __all__ = ["main", "apply_overrides"]
@@ -53,24 +64,137 @@ def apply_overrides(cfg: EPPMConfig, overrides: List[str]) -> EPPMConfig:
 
 
 def _load(path: str, device: torch.device) -> torch.Tensor:
-    img = read_ppm(path)
-    if img.ndim != 3 or img.dtype != np.uint8:
-        raise SystemExit(f"{path}: expected an 8-bit RGB image (P3/P6)")
+    img = read_image(path)
+    if img.dtype != np.uint8:
+        raise SystemExit(f"{path}: expected an 8-bit image")
     return torch.from_numpy(img).to(device)
+
+
+def _device_report(device: torch.device) -> dict:
+    report = {"device": str(device)}
+    if device.type == "cuda":
+        report["device_name"] = torch.cuda.get_device_name(device)
+    return report
+
+
+# Frames decoded per batch, and flows in flight between the pipeline and
+# the thread that reads them back and writes them.
+STREAM_CHUNK = 32
+STREAM_WINDOW = 4
+
+
+def q16(flow: torch.Tensor) -> torch.Tensor:
+    """1/64-px int16 fixed point of a flow, on its device: half the bytes
+    of float32 to read back, error at most 1/128 px; unknown flow
+    saturates at 32767."""
+    return torch.round(flow * 64.0).clamp(-32768.0, 32767.0).to(torch.int16)
+
+
+def stream(frames_dir: str, out_dir: Optional[str], cfg: EPPMConfig,
+           device: torch.device, temporal: bool = False,
+           exact: bool = False) -> dict:
+    """The flow of every consecutive pair of the frames in ``frames_dir``
+    (sorted by name), written as ``out_dir``/<first frame>.flo.  Frames
+    decode in chunks of ``STREAM_CHUNK``; at most ``STREAM_WINDOW`` flows
+    wait for a drain thread, which reads each back (1/64-px int16 unless
+    ``exact``) and writes it.  ``temporal`` hands each pair's flow, still
+    on the device, to the next pair as ``init_flow``.  Returns the report:
+    frames, pairs, pairs a second (after a warm-up on the first pair,
+    which builds the kernels) and the device."""
+    names = sorted(f for f in os.listdir(frames_dir)
+                   if f.lower().endswith(IMAGE_EXTS))
+    if len(names) < 2:
+        raise SystemExit(f"{frames_dir}: need >= 2 frames "
+                         f"({'/'.join(IMAGE_EXTS)})")
+    paths = [os.path.join(frames_dir, f) for f in names]
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+
+    def run(a, b, init=None):
+        return compute_flow(a, b, cfg, init_flow=init)
+
+    first = [torch.from_numpy(f).to(device) for f in read_image_batch(paths[:2])]
+    warm = run(*first)
+    if temporal:
+        warm = run(*first, warm)
+    warm.cpu()
+
+    fetch: "queue.Queue" = queue.Queue(maxsize=STREAM_WINDOW)
+    errors: List[BaseException] = []
+
+    def drain():
+        while True:
+            item = fetch.get()
+            if item is None:
+                return
+            name, fl = item
+            try:
+                out = fl.cpu().numpy()
+                if not exact:
+                    out = out.astype(np.float32) * np.float32(1.0 / 64.0)
+                if out_dir:
+                    write_flo(os.path.join(
+                        out_dir, os.path.splitext(name)[0] + ".flo"), out)
+            except Exception as e:  # raised in the caller after the join
+                errors.append(e)
+
+    drainer = threading.Thread(target=drain, daemon=True)
+    drainer.start()
+    prev = prev_flow = None
+    t0 = time.perf_counter()
+    try:
+        for start in range(0, len(paths), STREAM_CHUNK):
+            frames = read_image_batch(paths[start : start + STREAM_CHUNK])
+            for k in range(frames.shape[0]):
+                cur = torch.from_numpy(frames[k]).to(device)
+                if prev is not None:
+                    fl = run(prev, cur, prev_flow)
+                    if temporal:
+                        prev_flow = fl
+                    fetch.put((names[start + k - 1], fl if exact else q16(fl)))
+                prev = cur
+    finally:
+        fetch.put(None)
+        drainer.join()
+    if errors:
+        raise errors[0]
+    n_pairs = len(paths) - 1
+    return {"frames": len(names), "pairs": n_pairs,
+            "fps": n_pairs / (time.perf_counter() - t0), "out_dir": out_dir,
+            **_device_report(device)}
+
+
+def write_viz(path: str, flow: torch.Tensor) -> None:
+    """The Middlebury colour coding of ``flow`` as .png, else as .ppm."""
+    rgb = flow_to_color(flow).cpu().numpy()
+    (write_png if path.lower().endswith(".png") else write_ppm)(path, rgb)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m eppm_tpu_torch.cli",
-        description="EPPM optical flow for one frame pair (PyTorch/CUDA).",
+        description="EPPM optical flow for a frame pair or a stream of "
+                    "frames (PyTorch/CUDA).",
     )
-    p.add_argument("frame1", help="first frame (PPM)")
-    p.add_argument("frame2", help="second frame (PPM)")
+    p.add_argument("frame1", nargs="?", help="first frame (PPM/PGM/PNG)")
+    p.add_argument("frame2", nargs="?", help="second frame")
     p.add_argument("-o", "--out", help="write the flow as .flo")
+    p.add_argument("--viz", help="write the colour-coded flow as .ppm or .png")
     p.add_argument("--set", action="append", default=[], metavar="K=V",
                    help="override a config field (dotted path), repeatable")
     p.add_argument("--time", action="store_true",
                    help="report the wall time of the flow computation")
+    p.add_argument("--frames-dir", metavar="DIR",
+                   help="stream mode: the flow of every consecutive frame "
+                        "pair in DIR (sorted)")
+    p.add_argument("--out-dir", metavar="DIR",
+                   help="stream mode: directory for the .flo outputs")
+    p.add_argument("--temporal", action="store_true",
+                   help="stream mode: warm-start each pair's coarse match "
+                        "from the previous pair's flow")
+    p.add_argument("--exact-readback", action="store_true",
+                   help="stream mode: read the flow back as float32 instead "
+                        "of 1/64-px int16 (error <= 1/128 px)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="device to run on (default cuda; raises without one)")
     args = p.parse_args(argv)
@@ -79,6 +203,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         raise SystemExit("no CUDA device: pass --device cpu to run on the CPU")
     device = torch.device(args.device)
     cfg = apply_overrides(DEFAULT_CONFIG, args.set)
+    if args.frames_dir:
+        print(json.dumps(stream(args.frames_dir, args.out_dir, cfg, device,
+                                args.temporal, args.exact_readback)))
+        return 0
+    if not (args.frame1 and args.frame2):
+        p.error("frame1 and frame2 are required (or --frames-dir)")
     img1 = _load(args.frame1, device)
     img2 = _load(args.frame2, device)
     if img1.shape != img2.shape:
@@ -90,12 +220,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0
+    if args.viz:
+        write_viz(args.viz, flow)
     flow = flow.cpu().numpy()
     if args.out:
         write_flo(args.out, flow)
-    report = {"shape": list(flow.shape), "device": str(device)}
-    if device.type == "cuda":
-        report["device_name"] = torch.cuda.get_device_name(device)
+    report = {"shape": list(flow.shape), **_device_report(device)}
     if args.time:
         report["seconds"] = seconds
     print(json.dumps(report))

@@ -6,14 +6,14 @@
 //   w = exp(-maxabs3(img(q) - img(p))^2 / sig_r2) * g(dy, dx) * known(q)
 //   out(p) = sum(w * flow(q)) / sum(w), or flow(p) where sum(w) == 0.
 // Taps outside the image and taps whose flow is unknown (> 1e9 in either
-// component: the 1e10 sentinel) weigh 0, so they are skipped: adding a zero
-// term leaves a float sum unchanged.  g is the plain version's float32
-// table of exp(-dy^2/s^2) * exp(-dx^2/s^2), passed by value.  Both kernels
-// below follow the plain version (eppm_tpu_torch/ops/refine.py::
-// flow_smoothing) bit for bit: taps in row-major order, in partial sums of
-// `chunk` taps, the weighted flow in two interleaved partials (even and odd
-// taps of the chunk).  The next pyramid level truncates this flow, so the
-// last bit matters (common.cuh).
+// component: the 1e10 sentinel) weigh 0: their weight is skipped and their
+// weighted flow is a +0 term.  g is the plain version's float32 table of
+// exp(-dy^2/s^2) * exp(-dx^2/s^2), passed by value.  Both kernels below
+// follow the plain version (eppm_tpu_torch/ops/refine.py::flow_smoothing)
+// bit for bit: taps in row-major order, in partial sums of 21 taps, the
+// weights in sequence and the weighted flow in XLA's order of a chunk
+// (tree21 below, ops/refine.py::chunk_sum21).  The next pyramid level
+// truncates this flow, so the last bit matters (common.cuh).
 //
 // What bounds it on the H100: the exp.  exp_cephes is a float32 polynomial
 // whose multiply-adds round through float64 (fma32), ~19 conversions
@@ -44,11 +44,39 @@
 
 #define MAX_SMOOTH_TAPS 961  // radius <= 15
 #define EPPM_UNKNOWN_FLOW 1e10f  // the plain version's pad: unknown flow
+#define SMOOTH_CHUNK 21          // taps a partial sum
+
+// The sum of a chunk's 21 terms t(0..20) (+0 for a missing tap) in the
+// order XLA's CPU backend sums the JAX package's chunk (its reduction over
+// the chunk, vectorised 8 wide): s_i = t(i) + t(i + 8), then ((s0 + s4) +
+// (s2 + s6)) + ((s1 + s5) + (s3 + s7)), then ((that + t16) + t18) + (t17 +
+// t19), then + t20.  t is called once a term, in the order it is needed
+// (t(i), t(i + 8), t(i + 4), t(i + 12) for i = 0..3, then 16..20), so that
+// only four partials are live.
+template <class Term>
+__device__ __forceinline__ float2 tree21(Term t)
+{
+    float2 a[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const float2 p0 = t(i), p8 = t(i + 8), p4 = t(i + 4),
+                     p12 = t(i + 12);
+        const float2 s0 = make_float2(p0.x + p8.x, p0.y + p8.y);
+        const float2 s4 = make_float2(p4.x + p12.x, p4.y + p12.y);
+        a[i] = make_float2(s0.x + s4.x, s0.y + s4.y);
+    }
+    float2 v = make_float2((a[0].x + a[2].x) + (a[1].x + a[3].x),
+                           (a[0].y + a[2].y) + (a[1].y + a[3].y));
+    const float2 p16 = t(16), p18 = t(18), p17 = t(17), p19 = t(19);
+    v = make_float2((v.x + p16.x) + p18.x, (v.y + p16.y) + p18.y);
+    v = make_float2(v.x + (p17.x + p19.x), v.y + (p17.y + p19.y));
+    const float2 p20 = t(20);
+    return make_float2(v.x + p20.x, v.y + p20.y);
+}
 
 struct SmoothTable {
     float g[MAX_SMOOTH_TAPS];
     int r;
-    int chunk;
 };
 
 __global__ void flow_smooth_kernel(
@@ -63,12 +91,18 @@ __global__ void flow_smooth_kernel(
     const float cr = img[3 * p], cg = img[3 * p + 1], cb = img[3 * p + 2];
     const int r = tab.r, n = 2 * r + 1, n_taps = n * n;
     float su = 0.f, sv = 0.f, sw = 0.f;
-    for (int k0 = 0; k0 < n_taps; k0 += tab.chunk) {
-        const int k1 = min(k0 + tab.chunk, n_taps);
-        float pu[2] = {0.f, 0.f}, pv[2] = {0.f, 0.f}, pw = 0.f;
-        for (int k = k0; k < k1; ++k) {
+    for (int k0 = 0; k0 < n_taps; k0 += SMOOTH_CHUNK) {
+        // the chunk's weighted flows, +0 where a tap is missing, out of
+        // the image or of unknown flow; its weights summed in sequence
+        float2 wf[SMOOTH_CHUNK];
+        float pw = 0.f;
+#pragma unroll
+        for (int j = 0; j < SMOOTH_CHUNK; ++j) {
+            wf[j] = make_float2(0.f, 0.f);
+            const int k = k0 + j;
             const int yy = y + k / n - r, xx = x + k % n - r;
-            if (yy < 0 || yy >= H || xx < 0 || xx >= W) continue;
+            if (k >= n_taps || yy < 0 || yy >= H || xx < 0 || xx >= W)
+                continue;
             const size_t q = (size_t)yy * W + xx;
             const float2 f = flow[q];
             if (!(f.x <= EPPM_UNKNOWN_THRESH && f.y <= EPPM_UNKNOWN_THRESH))
@@ -77,13 +111,12 @@ __global__ void flow_smooth_kernel(
                                      img[3 * q + 2], cr, cg, cb);
             const float w =
                 ftz(exp_cephes(-(dr * dr) * inv_sig_r2) * tab.g[k]);
-            const int j = (k - k0) & 1;
-            pu[j] = pu[j] + w * f.x;
-            pv[j] = pv[j] + w * f.y;
+            wf[j] = make_float2(w * f.x, w * f.y);
             pw = pw + w;
         }
-        su = su + (pu[0] + pu[1]);
-        sv = sv + (pv[0] + pv[1]);
+        const float2 c = tree21([&](int j) { return wf[j]; });
+        su = su + c.x;
+        sv = sv + c.y;
         sw = sw + pw;
     }
     if (sw > 0.f) {
@@ -99,6 +132,7 @@ __global__ void flow_smooth_kernel(
 #define PAIR_R 10                       // the radius whose rows are chunks
 #define PAIR_N (2 * PAIR_R + 1)
 #define PAIR_G ((PAIR_R + 1) * PAIR_N)  // g of rows -r..0
+static_assert(PAIR_N == SMOOTH_CHUNK, "a row of the window is a chunk");
 
 struct PairTable {
     float g[PAIR_G];
@@ -163,26 +197,32 @@ __device__ __forceinline__ void pair_fields(
     }
 }
 
-// One row of taps of a pixel, as a chunk of the plain version: taps
-// t = dx + r ascending, known ones only, the weighted flow in two
-// interleaved partials; returns (pu0 + pu1, pv0 + pv1, pw).  frow points
-// at the row's dx = 0 flow, weight(t) gives the tap's weight.
+// One row of taps of a pixel, as a chunk of the plain version: the known
+// taps' weights in sequence, t = dx + r ascending, and their weighted
+// flows in tree21's order; returns (sum u, sum v, sum w).  frow points at
+// the row's dx = 0 flow, weight(t) gives the tap's weight (a shared-memory
+// read or a register: read twice, the weight sum and the tree need
+// different orders, and four partials in registers keep the kernel within
+// its 64 registers).
 template <class Weight>
 __device__ __forceinline__ float3 pair_row(const float2* frow,
                                            Weight weight)
 {
-    float pu[2] = {0.f, 0.f}, pv[2] = {0.f, 0.f}, pw = 0.f;
+    float pw = 0.f;
 #pragma unroll
     for (int t = 0; t < PAIR_N; ++t) {
         const float2 f = frow[t - PAIR_R];
-        if (f.x <= EPPM_UNKNOWN_THRESH && f.y <= EPPM_UNKNOWN_THRESH) {
-            const float w = weight(t);
-            pu[t & 1] = pu[t & 1] + w * f.x;
-            pv[t & 1] = pv[t & 1] + w * f.y;
-            pw = pw + w;
-        }
+        if (f.x <= EPPM_UNKNOWN_THRESH && f.y <= EPPM_UNKNOWN_THRESH)
+            pw = pw + weight(t);
     }
-    return make_float3(pu[0] + pu[1], pv[0] + pv[1], pw);
+    const float2 c = tree21([&](int t) {
+        const float2 f = frow[t - PAIR_R];
+        if (!(f.x <= EPPM_UNKNOWN_THRESH && f.y <= EPPM_UNKNOWN_THRESH))
+            return make_float2(0.f, 0.f);
+        const float w = weight(t);
+        return make_float2(w * f.x, w * f.y);
+    });
+    return make_float3(c.x, c.y, pw);
 }
 
 template <int TH, int TW, int PPT>
@@ -346,11 +386,11 @@ extern "C" int eppm_flow_smoothing(
     int r, int chunk, int H, int W, float inv_sig_r2, void* stream)
 {
     const int n = 2 * r + 1;
-    if (r < 0 || n * n > MAX_SMOOTH_TAPS || chunk < 1 || H < 1 || W < 1)
+    if (r < 0 || n * n > MAX_SMOOTH_TAPS || chunk != SMOOTH_CHUNK || H < 1
+        || W < 1)
         return (int)cudaErrorInvalidValue;
     SmoothTable tab;
     tab.r = r;
-    tab.chunk = chunk;
     for (int i = 0; i < n * n; ++i) tab.g[i] = g[i];
     const dim3 block(32, 8);
     const dim3 grid((W + 31) / 32, (H + 7) / 8);

@@ -1,6 +1,7 @@
-"""Image and flow file I/O in NumPy: Netpbm (PPM/PGM) and Middlebury .flo
-(copies of ``eppm_tpu/io/ppm.py`` and ``eppm_tpu/io/flo.py``, which the
-port cannot import: ``import eppm_tpu`` imports jax).
+"""Image and flow file I/O in NumPy: Netpbm (PPM/PGM), PNG and Middlebury
+.flo (copies of ``eppm_tpu/io/ppm.py``, ``png.py`` and ``flo.py``, which
+the port cannot import: ``import eppm_tpu`` imports jax).  Pure Python:
+the JAX package's optional native library is not used.
 
 PNM spec: the reference loader ``bao_loadimage_ppm``
 (basic/bao_basic.cpp:137-218) reads binary P6; P5 and the ASCII variants
@@ -11,11 +12,19 @@ int32 width, int32 height, then (u, v) float32 pairs in row-major order.
 
 from __future__ import annotations
 
+import os
+import struct
+import zlib
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 
 TAG_FLOAT = 202021.25
+IMAGE_EXTS = (".ppm", ".pgm", ".pnm", ".png")
 
-__all__ = ["read_ppm", "write_ppm", "read_flo", "write_flo", "TAG_FLOAT"]
+__all__ = ["read_ppm", "write_ppm", "read_png", "write_png", "read_image",
+           "read_image_batch", "read_flo", "write_flo", "TAG_FLOAT",
+           "IMAGE_EXTS"]
 
 
 def _read_tokens(data: bytes, count: int, pos: int):
@@ -104,3 +113,155 @@ def write_flo(path: str, flow: np.ndarray) -> None:
         f.write(np.float32(TAG_FLOAT).tobytes())
         f.write(np.array([w, h], dtype="<i4").tobytes())
         f.write(flow.tobytes())
+
+
+# PNG (spec subset of ``eppm_tpu/io/png.py``: bit depth 8 or 16, gray,
+# truecolor or truecolor + alpha, no interlace, no palette)
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}  # colour type -> samples per pixel
+
+
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """Write (H, W[, C]) uint8/uint16 as a gray / RGB / RGBA PNG."""
+    img = np.asarray(img)
+    if img.dtype == np.uint8:
+        depth, arr = 8, np.ascontiguousarray(img)
+    elif img.dtype == np.uint16:
+        depth, arr = 16, np.ascontiguousarray(img, ">u2")
+    else:
+        raise ValueError(f"write_png expects uint8/uint16, got {img.dtype}")
+    if img.ndim == 2:
+        ctype = 0
+    elif img.ndim == 3 and img.shape[2] in (3, 4):
+        ctype = 2 if img.shape[2] == 3 else 6
+    else:
+        raise ValueError(f"write_png expects (H,W), (H,W,3) or (H,W,4); "
+                         f"got {img.shape}")
+    h, w = img.shape[:2]
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0)
+    raw = b"".join(b"\x00" + arr[y].tobytes() for y in range(h))
+    with open(path, "wb") as f:
+        f.write(_PNG_SIG)
+        f.write(_png_chunk(b"IHDR", ihdr))
+        f.write(_png_chunk(b"IDAT", zlib.compress(raw, 6)))
+        f.write(_png_chunk(b"IEND", b""))
+
+
+def _png_unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
+    """Undo the PNG scanline filters -> (h, w * bpp) uint8 rows; ``bpp``
+    is the bytes per pixel (the filter unit).  None, Sub and Up are
+    vectorised over the row; Average and Paeth walk the columns,
+    vectorised over the bpp byte lanes."""
+    stride = w * bpp
+    out = np.empty((h, stride), np.uint8)
+    pos = 0
+    prev = np.zeros(stride, np.int32)
+    for y in range(h):
+        ftype = raw[pos]
+        pos += 1
+        line = np.frombuffer(raw, np.uint8, stride, pos).astype(np.int32)
+        pos += stride
+        if ftype == 0:
+            cur = line
+        elif ftype == 1:  # Sub: modular running sums per byte lane
+            cur = line.copy()
+            for r in range(bpp):
+                cur[r::bpp] = np.cumsum(cur[r::bpp]) & 0xFF
+        elif ftype == 2:  # Up
+            cur = (line + prev) & 0xFF
+        elif ftype in (3, 4):  # Average, Paeth
+            px = line.reshape(w, bpp)
+            up = prev.reshape(w, bpp)
+            cur2 = np.empty((w, bpp), np.int32)
+            left = np.zeros(bpp, np.int32)
+            upleft = np.zeros(bpp, np.int32)
+            for x in range(w):
+                if ftype == 3:
+                    pred = (left + up[x]) >> 1
+                else:
+                    p = left + up[x] - upleft
+                    pa, pb, pc = (np.abs(p - left), np.abs(p - up[x]),
+                                  np.abs(p - upleft))
+                    pred = np.where((pa <= pb) & (pa <= pc), left,
+                                    np.where(pb <= pc, up[x], upleft))
+                left = (px[x] + pred) & 0xFF
+                upleft = up[x]
+                cur2[x] = left
+            cur = cur2.reshape(stride)
+        else:
+            raise ValueError(f"unsupported PNG filter {ftype}")
+        out[y] = cur.astype(np.uint8)
+        prev = cur
+    return out
+
+
+def read_png(path: str) -> np.ndarray:
+    """Read a PNG -> (H, W) or (H, W, C) array, uint8 or uint16."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != _PNG_SIG:
+        raise ValueError(f"{path}: not a PNG")
+    pos = 8
+    idat = b""
+    w = h = depth = ctype = None
+    while pos + 8 <= len(data):
+        (length,) = struct.unpack(">I", data[pos : pos + 4])
+        tag = data[pos + 4 : pos + 8]
+        body = data[pos + 8 : pos + 8 + length]
+        pos += 12 + length
+        if tag == b"IHDR":
+            w, h, depth, ctype, _, _, ilace = struct.unpack(">IIBBBBB", body)
+            if depth not in (8, 16) or ctype not in _PNG_CHANNELS or ilace:
+                raise ValueError(
+                    f"{path}: only 8/16-bit gray/RGB/RGBA non-interlaced "
+                    f"PNGs supported (depth={depth} ctype={ctype} "
+                    f"interlace={ilace})")
+        elif tag == b"IDAT":
+            idat += body
+        elif tag == b"IEND":
+            break
+    if w is None:
+        raise ValueError(f"{path}: missing IHDR chunk")
+    nch = _PNG_CHANNELS[ctype]
+    rows = _png_unfilter(zlib.decompress(idat), h, w, nch * (depth // 8))
+    if depth == 8:
+        out = rows.reshape(h, w, nch)
+    else:
+        pairs = rows.reshape(h, w, nch, 2).astype(np.uint16)
+        out = pairs[..., 0] * 256 + pairs[..., 1]
+    return out[:, :, 0] if nch == 1 else out
+
+
+def read_image(path: str) -> np.ndarray:
+    """A frame as (H, W, 3) RGB from PPM/PGM/PNM or PNG
+    (``eppm_tpu/io/__init__.py::read_image`` without its PIL fallback):
+    gray replicated to three channels, alpha dropped, a 16-bit PNG scaled
+    to uint8."""
+    low = path.lower()
+    if low.endswith((".ppm", ".pgm", ".pnm")):
+        img = read_ppm(path)
+    elif low.endswith(".png"):
+        img = read_png(path)
+        if img.dtype == np.uint16:
+            img = (img // 257).astype(np.uint8)
+    else:
+        raise ValueError(f"{path}: only {'/'.join(IMAGE_EXTS)} are read")
+    if img.ndim == 2:
+        img = np.repeat(img[..., None], 3, axis=2)
+    elif img.shape[2] == 4:
+        img = img[..., :3]
+    return np.ascontiguousarray(img)
+
+
+def read_image_batch(paths, nthreads: int = 0) -> np.ndarray:
+    """(N, H, W, 3) uint8 stack of same-shaped frames, decoded on a thread
+    pool (zlib and file reads release the interpreter lock)."""
+    paths = list(paths)
+    nthreads = nthreads or min(8, os.cpu_count() or 1)
+    with ThreadPoolExecutor(max_workers=nthreads) as ex:
+        return np.stack(list(ex.map(read_image, paths)))

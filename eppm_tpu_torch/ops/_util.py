@@ -13,8 +13,8 @@ import torch
 
 __all__ = [
     "shift2d", "pad_edge", "grid", "popcount8", "round_up", "require_cuda",
-    "check_tensor",
-    "ftz", "fma32", "exp_cephes", "inv32", "FLT_MIN",
+    "check_tensor", "trunc_i32",
+    "ftz", "fma32", "exp_cephes", "inv32", "f32", "FLT_MIN",
 ]
 
 FLT_MIN = 1.1754943508222875e-38  # smallest normal float32
@@ -41,15 +41,18 @@ def inv32(c: float) -> float:
     return float(np.float32(1.0) / np.float32(c))
 
 
-def _f32(v: float) -> float:
-    return float(torch.tensor(v, dtype=torch.float32))
+def f32(v: float) -> float:
+    """A Python float rounded to float32, as XLA applies a weakly typed
+    constant: multiplying a float32 tensor by it rounds the same on every
+    device."""
+    return float(np.float32(v))
 
 
 # Cephes expf constants, rounded to float32 as the CUDA kernels hold them.
-_LOG2E = _f32(1.44269504088896341)
-_NEG_C1 = _f32(-0.693359375)
-_NEG_C2 = _f32(2.12194440e-4)
-_EXP_P = tuple(_f32(p) for p in (
+_LOG2E = f32(1.44269504088896341)
+_NEG_C1 = f32(-0.693359375)
+_NEG_C2 = f32(2.12194440e-4)
+_EXP_P = tuple(f32(p) for p in (
     1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2,
     1.6666665459e-1, 5.0000001201e-1,
 ))
@@ -89,6 +92,22 @@ def exp_cephes(x: torch.Tensor) -> torch.Tensor:
     z = 1.0 + z
     pow2 = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
     return ftz(z * pow2)
+
+
+def trunc_i32(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 truncating toward zero, as XLA converts: values
+    beyond the int32 range saturate to its ends and NaN becomes 0.
+
+    A plain ``.to(torch.int32)`` of such a value is undefined in C and
+    gives -2^31 on torch's CPU backend, while the card's ``cvt.rzi``
+    saturates.  The flows a caller hands in (a temporal ``init_flow``)
+    and their resizes can hold ``UNKNOWN_FLOW`` = 1e10 or mixes of it, so
+    every truncation of such a flow goes through this: the clamp makes
+    the conversion the same on every device.  2147483520 is the largest
+    float32 below 2^31."""
+    x = x.to(torch.float32)
+    out = torch.nan_to_num(x, nan=0.0).clamp(-2147483648.0, 2147483520.0)
+    return torch.where(x >= 2147483648.0, 2147483647, out.to(torch.int32))
 
 
 def _clamped(n: int, lo: int, hi: int, device) -> torch.Tensor:

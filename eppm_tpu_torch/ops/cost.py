@@ -39,7 +39,8 @@ from ._util import exp_cephes, ftz, inv32, pad_edge, popcount8, shift2d
 __all__ = ["pack_frame", "make_patch_stack", "patch_cost_stack", "tap_weight",
            "cost_constants", "ad_census", "bilateral_cost", "PLANE_COEFS",
            "plane_offsets",
-           "patch_cost_planefitting", "quantize_cost", "TAP_CHUNK"]
+           "patch_cost_planefitting", "patch_cost_ad_l2", "quantize_cost",
+           "TAP_CHUNK"]
 
 # Taps per partial sum of the cost (the JAX package's ``cost_tap_chunk``).
 TAP_CHUNK = 25
@@ -241,3 +242,25 @@ def patch_cost_planefitting(
         c = patch_cost_offsets(pack1, pack2, tx, ty, cfg, offsets2)
         cost = c if cost is None else torch.minimum(cost, c)
     return cost
+
+
+def patch_cost_ad_l2(img1: torch.Tensor, img2: torch.Tensor, tx: torch.Tensor,
+                     ty: torch.Tensor, cfg: CostConfig = CostConfig()
+                     ) -> torch.Tensor:
+    """Unweighted robust-AD cost of the targets (tx, ty) over the tap grid
+    (bao_pmflow_kernel.cu:555-586), the mean of 1 - exp(-ad^2 / lambda_ad^2);
+    used by the still-region suppressor (:2072-2095)."""
+    h, w = img1.shape[0], img1.shape[1]
+    R = cfg.patch_radius
+    inv_lam_ad2 = inv32(cfg.lambda_ad * cfg.lambda_ad)
+    pad1 = pad_edge(img1, R, R)
+    flat = img2.reshape(-1, 3)
+    acc = torch.zeros((h, w), dtype=torch.float32, device=img1.device)
+    taps = list(cfg.tap_offsets)
+    for i, j in taps:
+        p1 = pad1[R + i : R + i + h, R + j : R + j + w]
+        cy = (ty + i).clamp(0, h - 1)
+        cx = (tx + j).clamp(0, w - 1)
+        ad = maxabs3(p1, flat[(cy * w + cx).long()])
+        acc = acc + (1.0 - exp_cephes(-(ad * ad) * inv_lam_ad2))
+    return acc * inv32(len(taps))

@@ -16,7 +16,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from ..config import FLT_MAX, UNKNOWN_FLOW_THRESH, CostConfig
-from ._util import grid, pad_edge, shift2d
+from ._util import f32, grid, pad_edge, shift2d, trunc_i32
 from .cost import (TAP_CHUNK, ad_census, bilateral_cost, cost_constants,
                    plane_offsets, quantize_cost, tap_weight)
 
@@ -217,13 +217,19 @@ def dense_refine_flow(
     cand_shape: str = "square",
     gather_dtype=None,
     use_planes: bool = False,
+    subpixel_fit: bool = False,
+    subpixel_min_curv: float = 0.0,
 ) -> torch.Tensor:
     """Search the candidates around trunc(flow) with the residual cost on
     the once-warped frame 2 (fronto-parallel, or the least over the 4
     plane hypotheses with ``use_planes``).  Unknown flow resets to 0,
     candidates whose true target leaves frame 2 are skipped, ties keep the
-    first candidate (``eppm_tpu/ops/dense.py::dense_refine_flow`` without
-    the subpixel fit)."""
+    first candidate (``eppm_tpu/ops/dense.py::dense_refine_flow``).
+
+    ``subpixel_fit``: where the centre candidate wins and its four axis
+    neighbours are in frame 2, a 1-D parabola through the three costs of
+    each axis moves the flow by at most half a pixel, where the axis
+    curvature exceeds ``max(subpixel_min_curv, 1e-8)``."""
     from .cuda_cost import residual_costs_auto
 
     h, w = flow.shape[:2]
@@ -231,8 +237,8 @@ def dense_refine_flow(
     ys, xs = grid(h, w, flow.device)
     u, v = flow[..., 0], flow[..., 1]
     unknown = (u > UNKNOWN_FLOW_THRESH) | (v > UNKNOWN_FLOW_THRESH)
-    gx = torch.where(unknown, 0.0, u).trunc().to(torch.int32)
-    gy = torch.where(unknown, 0.0, v).trunc().to(torch.int32)
+    gx = trunc_i32(torch.where(unknown, 0.0, u))
+    gy = trunc_i32(torch.where(unknown, 0.0, v))
     warped2 = warp_pack(pack2, gx, gy, gather_dtype)
 
     cand_offsets = center_out_offsets(search_radius, cand_shape)
@@ -241,11 +247,33 @@ def dense_refine_flow(
     best_dy, best_dx, _ = argmin_candidates(
         costs, cand_offsets, ys + gy, xs + gx, h2, w2, init=999999.0
     )
-    out = torch.stack(
-        [(gx + best_dx).to(torch.float32), (gy + best_dy).to(torch.float32)],
-        dim=-1,
-    )
+    out_u = (gx + best_dx).to(torch.float32)
+    out_v = (gy + best_dy).to(torch.float32)
+    if subpixel_fit:
+        k_of = {off: k for k, off in enumerate(cand_offsets)}
+        cc, cl, cr, cu, cd = (
+            torch.where(_in_frame(ys + gy + m, xs + gx + n, h2, w2),
+                        costs[k_of[(m, n)]], FLT_MAX)
+            for m, n in ((0, 0), (0, -1), (0, 1), (-1, 0), (1, 0)))
+        valid = ((best_dy == 0) & (best_dx == 0) & (cl < FLT_MAX)
+                 & (cr < FLT_MAX) & (cu < FLT_MAX) & (cd < FLT_MAX))
+        # float32 constants, as the JAX package's weakly typed ones
+        floor = f32(max(float(subpixel_min_curv), 1e-8))
+        eps = f32(1e-8)
+
+        def fit(lo, hi):
+            den = lo - 2.0 * cc + hi
+            d = 0.5 * (lo - hi) / den.clamp_min(eps)
+            return torch.where(den > floor, d.clamp(-0.5, 0.5), 0.0)
+
+        out_u = out_u + torch.where(valid, fit(cl, cr), 0.0)
+        out_v = out_v + torch.where(valid, fit(cu, cd), 0.0)
+    out = torch.stack([out_u, out_v], dim=-1)
     return torch.where(unknown[..., None], 0.0, out)
+
+
+def _in_frame(ty, tx, h2: int, w2: int) -> torch.Tensor:
+    return (tx >= 0) & (tx < w2) & (ty >= 0) & (ty < h2)
 
 
 def argmin_candidates(
@@ -265,10 +293,8 @@ def argmin_candidates(
     best_dy = torch.zeros(ty0.shape, dtype=torch.int32, device=costs.device)
     best_dx = torch.zeros_like(best_dy)
     for k, (m, n) in enumerate(cand_offsets):
-        ty = ty0 + m
-        tx = tx0 + n
-        inb = (tx >= 0) & (tx < w2) & (ty >= 0) & (ty < h2)
-        ck = torch.where(inb, costs[k], FLT_MAX)
+        ck = torch.where(_in_frame(ty0 + m, tx0 + n, h2, w2), costs[k],
+                         FLT_MAX)
         better = ck < best_cost
         best_cost = torch.where(better, ck, best_cost)
         best_dy = torch.where(better, m, best_dy)

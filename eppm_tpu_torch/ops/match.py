@@ -22,7 +22,7 @@ from typing import Tuple
 import torch
 
 from ..config import FLT_MAX, CostConfig, MatchConfig
-from ._util import grid, shift2d
+from ._util import grid, shift2d, trunc_i32
 from .census import census_transform
 from .cost import make_patch_stack, pack_frame, patch_cost_stack, quantize_cost
 from .cuda_cost import residual_costs_auto, residual_costs_multiwarp_auto
@@ -168,9 +168,9 @@ def global_match_bidi(
 
 
 def _int_flow(flow: torch.Tensor):
-    """(gy, gx) int32 = trunc of an (H, W, 2) flow."""
-    return (flow[..., 1].trunc().to(torch.int32),
-            flow[..., 0].trunc().to(torch.int32))
+    """(gy, gx) int32 = trunc of an (H, W, 2) flow, saturating as XLA
+    does (a warm-start flow may hold ``UNKNOWN_FLOW``)."""
+    return trunc_i32(flow[..., 1]), trunc_i32(flow[..., 0])
 
 
 def _as_flow(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
@@ -333,16 +333,31 @@ def _coarse_targets_from_global(p_y, p_x, s: int, h: int, w: int):
 
 
 def _start_direction(packs_a, packs_b, tiny_targets, match_cfg, cost_cfg,
-                     mini_cost):
-    """(flow, cost) of one direction before the coarse proposals: the
-    descent chain from the tiny-level global targets, or zero flow and its
-    cost where the coarse level has no mini level below it."""
-    if tiny_targets is not None:
-        return _descend_chain(packs_a, packs_b, tiny_targets, match_cfg,
-                              cost_cfg, mini_cost)
+                     mini_cost, init_flow=None):
+    """(flow, cost) of one direction before the coarse proposals.
+
+    Without a warm start: the descent chain from the tiny-level global
+    targets, or zero flow and its cost where the coarse level has no mini
+    level below it.  With ``init_flow`` (this direction's temporal warm
+    start, at the coarse level) under ``warm_skip_global``: one dense
+    residual sweep around it in place of both; otherwise the init is
+    merged as a true-cost proposal."""
     pack_a, pack_b = packs_a[0], packs_b[0]
-    z = torch.zeros(pack_a.shape[:2], dtype=torch.int32, device=pack_a.device)
-    return _as_flow(z, z), rescore(pack_a, pack_b, z, z, cost_cfg)
+    if init_flow is not None and match_cfg.warm_skip_global:
+        return descend_level(pack_a, pack_b, init_flow,
+                             match_cfg.descent_radius, cost_cfg)
+    if tiny_targets is not None:
+        flow, cost = _descend_chain(packs_a, packs_b, tiny_targets,
+                                    match_cfg, cost_cfg, mini_cost)
+    else:
+        z = torch.zeros(pack_a.shape[:2], dtype=torch.int32,
+                        device=pack_a.device)
+        flow, cost = _as_flow(z, z), rescore(pack_a, pack_b, z, z, cost_cfg)
+    if init_flow is not None:
+        igy, igx = _int_flow(init_flow)
+        flow, cost = _merge_proposal(pack_a, pack_b, flow, cost, igy, igx,
+                                     cost_cfg)
+    return flow, cost
 
 
 def _finish_direction(pack_a, pack_b, flow, cost, proposal, s: int,
@@ -357,14 +372,6 @@ def _finish_direction(pack_a, pack_b, flow, cost, proposal, s: int,
     return _polish_direction(pack_a, pack_b, flow, cost, match_cfg, cost_cfg)
 
 
-def _no_warm_start(init_flow) -> None:
-    if init_flow is not None:
-        raise NotImplementedError(
-            "init_flow (temporal warm start) is not ported yet: ROADMAP.md, "
-            "Queue 1 item 13"
-        )
-
-
 def match_coarse(
     img1: torch.Tensor,
     img2: torch.Tensor,
@@ -376,11 +383,13 @@ def match_coarse(
 ):
     """Coarse-level dense matching, frame 1 -> frame 2: (tx, ty, cost),
     absolute int32 targets and their cost (``eppm_tpu/ops/match.py::
-    match_coarse`` without the temporal warm start).  Its global matches
-    run through kernel D on the card (``global_match``)."""
-    _no_warm_start(init_flow)
+    match_coarse``).  Its global matches run through kernel D on the card
+    (``global_match``).  ``init_flow`` (H, W, 2) is a temporal warm start
+    at this level: merged as a proposal, or, with
+    ``match_cfg.warm_skip_global``, in place of the global stages."""
     h, w = img1.shape[0], img1.shape[1]
-    levels = _mini_levels(h, w, match_cfg)
+    skip = init_flow is not None and match_cfg.warm_skip_global
+    levels = 0 if skip else _mini_levels(h, w, match_cfg)
     packs1 = _mini_pyramid(img1, levels, pack0=pack1)
     packs2 = _mini_pyramid(img2, levels, pack0=pack2)
     tiny = None
@@ -389,9 +398,10 @@ def match_coarse(
                             patch_descriptors(packs2[-1], match_cfg),
                             match_cfg.global_block)
     flow, cost = _start_direction(packs1, packs2, tiny, match_cfg, cost_cfg,
-                                  _make_mini_cost(cost_cfg, match_cfg))
+                                  _make_mini_cost(cost_cfg, match_cfg),
+                                  init_flow)
     proposal, s = None, 1
-    if match_cfg.global_at_coarse:
+    if match_cfg.global_at_coarse and not skip:
         # the argmax costs N1*N2: above the threshold the proposal grid
         # subsamples by 2 on both frames
         s = 2 if h * w > match_cfg.global_stride_threshold else 1
@@ -414,14 +424,15 @@ def match_coarse_bidi(
 ):
     """Bidirectional coarse matching: ((tx1, ty1, c1), (tx2, ty2, c2)),
     sharing the mini-pyramids, descriptors and the global score sweep
-    between the directions (``eppm_tpu/ops/match.py::match_coarse_bidi``
-    without the temporal warm start).  For frames of one size each
-    direction equals a ``match_coarse`` call."""
-    _no_warm_start(init_flow)
+    between the directions (``eppm_tpu/ops/match.py::match_coarse_bidi``).
+    For frames of one size each direction equals a ``match_coarse`` call.
+    ``init_flow`` seeds the forward direction and its negation the
+    backward one."""
     h, w = img1.shape[0], img1.shape[1]
     h2, w2 = img2.shape[0], img2.shape[1]
-    levels = min(_mini_levels(h, w, match_cfg),
-                 _mini_levels(h2, w2, match_cfg))
+    skip = init_flow is not None and match_cfg.warm_skip_global
+    levels = 0 if skip else min(_mini_levels(h, w, match_cfg),
+                                _mini_levels(h2, w2, match_cfg))
     packs1 = _mini_pyramid(img1, levels, pack0=pack1)
     packs2 = _mini_pyramid(img2, levels, pack0=pack2)
     mini_cost = _make_mini_cost(cost_cfg, match_cfg)
@@ -433,13 +444,14 @@ def match_coarse_bidi(
             patch_descriptors(packs2[-1], match_cfg), match_cfg.global_block)
         tiny_f, tiny_b = (t1y, t1x), (t2y, t2x)
     flow_f, cost_f = _start_direction(packs1, packs2, tiny_f, match_cfg,
-                                      cost_cfg, mini_cost)
-    flow_b, cost_b = _start_direction(packs2, packs1, tiny_b, match_cfg,
-                                      cost_cfg, mini_cost)
+                                      cost_cfg, mini_cost, init_flow)
+    flow_b, cost_b = _start_direction(
+        packs2, packs1, tiny_b, match_cfg, cost_cfg, mini_cost,
+        None if init_flow is None else -init_flow)
 
     prop_f = prop_b = None
     s = 1
-    if match_cfg.global_at_coarse:
+    if match_cfg.global_at_coarse and not skip:
         s = 2 if max(h * w, h2 * w2) > match_cfg.global_stride_threshold else 1
         p1y, p1x, p2y, p2x = global_match_bidi(
             patch_descriptors(packs1[0], match_cfg, stride=s),

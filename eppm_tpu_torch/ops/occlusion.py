@@ -8,6 +8,9 @@ holes from the 4 scan directions, let frame-2 evidence re-decide holes
 that are visible there (photometric arbitration), a second fill pass for
 the corners no direction reaches, one frozen-valid WMF polish per
 dilation (kernel C), then 3x3 median majority rounds over the holes.
+The legacy order (``wmf_fill_first=False``, the reference's schedule,
+compute_flow .cpp:236-243): ``wmf_coarse_iters`` Jacobi iterations of
+the WMF over the holes (kernel C), then one hole fill.
 """
 
 from __future__ import annotations
@@ -138,37 +141,42 @@ def wmf_polish_occlusions(
 
 def coarse_occlusion_reconstruct(tx, ty, img, rcfg: RefineConfig,
                                  packs=None, cost_cfg=None, orig=None):
-    """The coarse level's occlusion chain under ``wmf_fill_first=True``
-    (``eppm_tpu/ops/pallas_wmf.py::coarse_occlusion_reconstruct``): one
-    frozen-valid polish iteration per dilation (one iteration is that
-    pass's fixed point), median majority rounds over the holes, then the
-    optional full-image WMF passes."""
-    if not rcfg.wmf_fill_first:
-        raise NotImplementedError(
-            "refine.wmf_fill_first=False (the legacy WMF-then-fill order) "
-            "is not ported yet: ROADMAP.md, Queue 1 item 13"
+    """The coarse level's occlusion chain
+    (``eppm_tpu/ops/pallas_wmf.py::coarse_occlusion_reconstruct``).
+    Under ``wmf_fill_first``: one frozen-valid polish iteration per
+    dilation (one iteration is that pass's fixed point), then median
+    majority rounds over the holes.  Otherwise the legacy order:
+    ``wmf_coarse_iters`` occlusion-only Jacobi iterations, then
+    ``fill_holes``.  Either way the optional full-image WMF passes
+    follow."""
+    if rcfg.wmf_fill_first:
+        hole = (tx < 0) | (ty < 0)
+        tx, ty = wmf_polish_occlusions(
+            tx, ty, img, rcfg, num_iter=1,
+            dilations=rcfg.wmf_polish_dilations,
+            fill_patch_radius=rcfg.fill_patch_radius,
+            accept_thresh=rcfg.wmf_polish_accept_thresh,
+            fill_linear_baseline=rcfg.fill_linear_baseline,
+            fill_linear_slope_tol=rcfg.fill_linear_slope_tol,
+            packs=packs, cost_cfg=cost_cfg,
+            fill_cost_thresh=rcfg.fill_photometric_thresh,
+            orig=orig,
         )
-    hole = (tx < 0) | (ty < 0)
-    tx, ty = wmf_polish_occlusions(
-        tx, ty, img, rcfg, num_iter=1,
-        dilations=rcfg.wmf_polish_dilations,
-        fill_patch_radius=rcfg.fill_patch_radius,
-        accept_thresh=rcfg.wmf_polish_accept_thresh,
-        fill_linear_baseline=rcfg.fill_linear_baseline,
-        fill_linear_slope_tol=rcfg.fill_linear_slope_tol,
-        packs=packs, cost_cfg=cost_cfg,
-        fill_cost_thresh=rcfg.fill_photometric_thresh,
-        orig=orig,
-    )
-    if rcfg.fill_median_rounds > 0:
-        ys, xs = grid(tx.shape[0], tx.shape[1], tx.device)
-        ox = (tx - xs).to(torch.float32)
-        oy = (ty - ys).to(torch.float32)
-        for _ in range(rcfg.fill_median_rounds):
-            ox = torch.where(hole, median3(ox), ox)
-            oy = torch.where(hole, median3(oy), oy)
-        tx = torch.where(hole, ox.to(torch.int32) + xs, tx)
-        ty = torch.where(hole, oy.to(torch.int32) + ys, ty)
+        if rcfg.fill_median_rounds > 0:
+            ys, xs = grid(tx.shape[0], tx.shape[1], tx.device)
+            ox = (tx - xs).to(torch.float32)
+            oy = (ty - ys).to(torch.float32)
+            for _ in range(rcfg.fill_median_rounds):
+                ox = torch.where(hole, median3(ox), ox)
+                oy = torch.where(hole, median3(oy), oy)
+            tx = torch.where(hole, ox.to(torch.int32) + xs, tx)
+            ty = torch.where(hole, oy.to(torch.int32) + ys, ty)
+    else:
+        tx, ty = weighted_median_filter_auto(
+            tx, ty, img, rcfg, num_iter=rcfg.wmf_coarse_iters,
+            only_occlusion=True,
+        )
+        tx, ty = fill_holes(tx, ty, img)
     if rcfg.wmf_coarse_full_iters > 0:
         tx, ty = weighted_median_filter_auto(
             tx, ty, img, rcfg, num_iter=rcfg.wmf_coarse_full_iters,

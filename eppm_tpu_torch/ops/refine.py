@@ -1,8 +1,11 @@
 """Flow refinement chain (counterpart of ``eppm_tpu/ops/refine.py``):
 left-right check, outlier removal, hole filling, NNF<->flow conversion,
 the gathered plane-fitting re-search (``blf_refine_flow``,
-``refine_impl="gather"``), and the plain PyTorch versions of kernel B
-(``flow_smoothing``) and kernel C (``weighted_median_filter``).
+``refine_impl="gather"``), the plain PyTorch versions of kernel B
+(``flow_smoothing``) and kernel C (``weighted_median_filter``), and the
+reference's utility stages that its default path does not call
+(``median_filter``, ``guide_image_smoothing``, ``flow_cutoff``,
+``eliminate_still_region``).
 
 Conventions (identical to the reference, bao_pmflow_refine_kernel.cu):
   - NNF = absolute int32 target coordinates (tx, ty); INVALID_LOCATION
@@ -27,8 +30,9 @@ from ..config import (
     CostConfig,
     RefineConfig,
 )
-from ._util import exp_cephes, fma32, ftz, grid, inv32, pad_edge
-from .cost import patch_cost_planefitting
+from ._util import (exp_cephes, f32, fma32, ftz, grid, inv32, pad_edge,
+                    trunc_i32)
+from .cost import patch_cost_ad_l2, patch_cost_planefitting
 
 __all__ = [
     "lr_check",
@@ -39,6 +43,10 @@ __all__ = [
     "flow_to_nnf",
     "flow_smoothing",
     "blf_refine_flow",
+    "median_filter",
+    "guide_image_smoothing",
+    "flow_cutoff",
+    "eliminate_still_region",
 ]
 
 # Taps per partial sum of the smoothing and supports per partial sum of
@@ -380,8 +388,8 @@ def flow_to_nnf(flow):
     ys, xs = grid(h, w, flow.device)
     u, v = flow[..., 0], flow[..., 1]
     unknown = (u > UNKNOWN_FLOW_THRESH) | (v > UNKNOWN_FLOW_THRESH)
-    tx = u.trunc().to(torch.int32) + xs
-    ty = v.trunc().to(torch.int32) + ys
+    tx = trunc_i32(u) + xs
+    ty = trunc_i32(v) + ys
     return (torch.where(unknown, INVALID_LOCATION, tx),
             torch.where(unknown, INVALID_LOCATION, ty))
 
@@ -396,6 +404,20 @@ def smoothing_weights(cfg: RefineConfig) -> np.ndarray:
          for dy in range(-r, r + 1) for dx in range(-r, r + 1)],
         np.float32,
     )
+
+
+def chunk_sum21(terms):
+    """The float32 sum of up to ``SMOOTH_CHUNK`` = 21 terms (missing ones
+    +0) in the order XLA's CPU backend sums the JAX package's chunk of
+    weighted flows (its reduction over the chunk, vectorised 8 wide):
+    s_i = t_i + t_(i+8) for i < 8, then ((s0 + s4) + (s2 + s6)) + ((s1 +
+    s5) + (s3 + s7)), then ((that + t16) + t18) + (t17 + t19), then + t20.
+    Kernel B sums each chunk in the same order."""
+    t = list(terms) + [torch.zeros_like(terms[0])] * (21 - len(terms))
+    s = [t[i] + t[i + 8] for i in range(8)]
+    a = [s[i] + s[i + 4] for i in range(4)]
+    r = (a[0] + a[2]) + (a[1] + a[3])
+    return (((r + t[16]) + t[18]) + (t[17] + t[19])) + t[20]
 
 
 def flow_smoothing(flow, img, cfg: RefineConfig = RefineConfig()):
@@ -414,11 +436,10 @@ def flow_smoothing(flow, img, cfg: RefineConfig = RefineConfig()):
     wsum = torch.zeros((h, w), dtype=torch.float32, device=flow.device)
     # Taps in row-major order, summed in chunks of ``SMOOTH_CHUNK`` like the JAX
     # oracle's scan; within a chunk the weights add in sequence and the
-    # weighted flows in two interleaved partial sums (even and odd taps),
-    # the order XLA's CPU backend gives the flow sum.  Bit-equality
+    # weighted flows in XLA's CPU order (``chunk_sum21``).  Bit-equality
     # matters here: the next level truncates the smoothed flow.
     for c0 in range(0, len(offs), SMOOTH_CHUNK):
-        part_f = [torch.zeros_like(fsum), torch.zeros_like(fsum)]
+        prods = []
         part_w = torch.zeros_like(wsum)
         for k in range(c0, min(c0 + SMOOTH_CHUNK, len(offs))):
             dy, dx = offs[k]
@@ -431,11 +452,9 @@ def flow_smoothing(flow, img, cfg: RefineConfig = RefineConfig()):
             dr = torch.maximum(torch.maximum(d[..., 0], d[..., 1]), d[..., 2])
             wgt = ftz(exp_cephes(-(dr * dr) * inv32(sig_r2)) * float(gws[k])) * (
                 known.to(torch.float32))
-            j = (k - c0) % 2
-            part_f[j] = part_f[j] + wgt[..., None] * torch.where(
-                known[..., None], f, 0.0)
+            prods.append(torch.where(known[..., None], wgt[..., None] * f, 0.0))
             part_w = part_w + wgt
-        fsum = fsum + (part_f[0] + part_f[1])
+        fsum = fsum + chunk_sum21(prods)
         wsum = wsum + part_w
     out = fsum / wsum.clamp_min(1e-30)[..., None]
     return torch.where((wsum > 0)[..., None], out, flow)
@@ -454,8 +473,8 @@ def blf_refine_flow(flow, pack1, pack2, cost_cfg: CostConfig):
     ys, xs = grid(h, w, flow.device)
     u, v = flow[..., 0], flow[..., 1]
     unknown = (u > UNKNOWN_FLOW_THRESH) | (v > UNKNOWN_FLOW_THRESH)
-    cx = torch.where(unknown, 0.0, u).trunc().to(torch.int32) + xs
-    cy = torch.where(unknown, 0.0, v).trunc().to(torch.int32) + ys
+    cx = trunc_i32(torch.where(unknown, 0.0, u)) + xs
+    cy = trunc_i32(torch.where(unknown, 0.0, v)) + ys
     best_cost = torch.full((h, w), 999999.0, dtype=torch.float32,
                            device=flow.device)
     best_tx, best_ty = cx, cy
@@ -473,3 +492,69 @@ def blf_refine_flow(flow, pack1, pack2, cost_cfg: CostConfig):
     out = torch.stack([(best_tx - xs).to(torch.float32),
                        (best_ty - ys).to(torch.float32)], dim=-1)
     return torch.where(unknown[..., None], 0.0, out)
+
+
+def median_filter(img, radius: int = 2):
+    """Channel-wise (2r+1)^2 median with edge-clamped taps
+    (d_median_filtering, refine_kernel.cu:921-974)."""
+    h, w = img.shape[0], img.shape[1]
+    p = pad_edge(img, radius, radius)
+    taps = torch.stack([p[radius + dy : radius + dy + h,
+                          radius + dx : radius + dx + w]
+                        for dy in range(-radius, radius + 1)
+                        for dx in range(-radius, radius + 1)])
+    return taps.sort(dim=0).values[taps.shape[0] // 2]
+
+
+def guide_image_smoothing(img, cfg: RefineConfig = RefineConfig(),
+                          median_radius: int = 2):
+    """Guide-image pre-smoothing (baoCudaImageSmoothing,
+    refine_kernel.cu:915-1054): a 5x5 channel-wise median, then a
+    bilateral filter of the median's output guided by itself (the
+    reference averages the original image, discarding the median: the
+    JAX package composes the two as evidently intended, and so does
+    this).  Taps outside the image are skipped; the sums run in chunks of
+    ``SMOOTH_CHUNK`` taps in ``flow_smoothing``'s order."""
+    med = median_filter(img, median_radius)
+    h, w = img.shape[0], img.shape[1]
+    r = cfg.blf_radius
+    inv_sig_r2 = inv32(cfg.blf_sigma_range**2)
+    pimg = pad_edge(med, r, r)
+    inside = _pad_const(torch.ones((h, w), dtype=torch.float32,
+                                   device=img.device), r, 0.0)
+    gws = smoothing_weights(cfg)
+    offs = [(dy, dx) for dy in range(-r, r + 1) for dx in range(-r, r + 1)]
+    psum = torch.zeros((h, w, 3), dtype=torch.float32, device=img.device)
+    wsum = torch.zeros((h, w), dtype=torch.float32, device=img.device)
+    for c0 in range(0, len(offs), SMOOTH_CHUNK):
+        prods = []
+        part_w = torch.zeros_like(wsum)
+        for k in range(c0, min(c0 + SMOOTH_CHUNK, len(offs))):
+            dy, dx = offs[k]
+            p = pimg[r + dy : r + dy + h, r + dx : r + dx + w]
+            v = inside[r + dy : r + dy + h, r + dx : r + dx + w]
+            d = (p - med).abs()
+            dr = torch.maximum(torch.maximum(d[..., 0], d[..., 1]), d[..., 2])
+            wgt = ftz(exp_cephes(-(dr * dr) * inv_sig_r2) * float(gws[k])) * v
+            prods.append(wgt[..., None] * p)
+            part_w = part_w + wgt
+        psum = psum + chunk_sum21(prods)
+        wsum = wsum + part_w
+    return psum / wsum.clamp_min(1e-30)[..., None]
+
+
+def flow_cutoff(flow, max_val: float):
+    """Clamp to +-max_val (refine_kernel.cu:891-912)."""
+    return flow.clamp(-max_val, max_val)
+
+
+def eliminate_still_region(flow, img1, img2,
+                           cost_cfg: CostConfig = CostConfig(),
+                           min_cost: float = 0.1):
+    """Zero the flow where the identity displacement already matches well
+    (baoEliminateStillRegionFlow, bao_pmflow_kernel.cu:2072-2095)."""
+    h, w = flow.shape[:2]
+    ys, xs = grid(h, w, flow.device)
+    cost = patch_cost_ad_l2(img1, img2, xs, ys, cost_cfg)
+    still = cost <= f32(min_cost)
+    return torch.where(still[..., None], 0.0, flow)

@@ -77,10 +77,14 @@ def _resize_axis_indices(
 
 
 def bilinear_resize(
-    img: torch.Tensor, out_h: int, out_w: int, ratio: float
+    img: torch.Tensor, out_h: int, out_w: int, ratio: float,
+    fused: bool = False,
 ) -> torch.Tensor:
     """Bilinear resize with the reference's coordinate mapping; ``ratio``
-    is out/in scale (0.5**i for pyramid levels, 2.0 for flow upsampling)."""
+    is out/in scale (0.5**i for pyramid levels, 2.0 for flow upsampling).
+    ``fused``: each a * (1 - f) + b * f as XLA's CPU backend fuses it
+    where the resize makes up its own program (the temporal init,
+    ``pipeline._coarse_init``): fma32(a, 1 - f, b * f)."""
     h, w = img.shape[0], img.shape[1]
     dev = img.device
     y0, y1, fy = _resize_axis_indices(out_h, h, ratio)
@@ -93,10 +97,15 @@ def bilinear_resize(
     r0 = img.index_select(0, torch.from_numpy(y0).to(dev))
     r1 = img.index_select(0, torch.from_numpy(y1).to(dev))
 
-    def row(r):
-        return r.index_select(1, x0) * (1.0 - fx) + r.index_select(1, x1) * fx
+    def lerp(a, b, f):
+        if fused:
+            return fma32(a, 1.0 - f, b * f)
+        return a * (1.0 - f) + b * f
 
-    return row(r0) * (1.0 - fy) + row(r1) * fy
+    def row(r):
+        return lerp(r.index_select(1, x0), r.index_select(1, x1), fx)
+
+    return lerp(row(r0), row(r1), fy)
 
 
 def gaussian_pyramid(

@@ -1,19 +1,25 @@
 """The EPPM optical-flow pipeline on PyTorch (counterpart of
-``eppm_tpu/pipeline.py``), default branches only.
+``eppm_tpu/pipeline.py``) with the dense match engine.
 
 Stage order (reference ``compute_flow``,
 bao_flow_patchmatch_multiscale_cuda.cpp:217-315):
 
   prepare: Gaussian pre-smooth -> Gaussian pyramid (auto-depth) -> census
     transform and pack per level
-  coarsest level: bidirectional dense matching -> left-right check ->
-    outlier removal -> occlusion reconstruction (fill-first) -> flow
+  coarsest level: bidirectional dense matching (warm-started from
+    ``init_flow`` when given) -> left-right check -> outlier removal ->
+    occlusion reconstruction (fill-first, or the legacy WMF-then-fill
+    order) -> flow
   each finer level: bilinear upsample x2 -> dense refine pass 1 (kernel A;
     its plane mode with ``dense_pass1_planes``) -> 3x3 median -> dense
-    refine pass 2 (kernel A; plane mode with ``dense_pass2_planes``), or,
-    with ``refine_impl="gather"``, the gathered plane-fitting re-search
-    (plain torch) -> flow smoothing (kernel B)
-  level 0: one more flow smoothing
+    refine pass 2 (kernel A; plane mode with ``dense_pass2_planes``; at
+    level 0 the last pass may add the parabola fit,
+    ``dense_subpixel_fit``), or, with ``refine_impl="gather"``, the
+    gathered plane-fitting re-search (plain torch) -> flow smoothing
+    (kernel B) -> with ``fine_level_wmf``, one full-image weighted median
+    iteration on the flow's targets (kernel C)
+  level 0: the optional quadratic subpixel stage (``subpixel_refine``,
+    plain torch), then one more flow smoothing
 
 PyTorch runs eagerly on the device of the input tensors: CUDA tensors
 launch the hand-written kernels, CPU tensors take their plain versions.
@@ -29,16 +35,18 @@ import torch
 from torch import nn
 
 from .config import DEFAULT_CONFIG, EPPMConfig
-from .ops._util import inv32
+from .ops._util import f32, inv32
 from .ops.census import census_transform
 from .ops.cost import pack_frame
 from .ops.cuda_smooth import flow_smoothing_auto
+from .ops.cuda_wmf import weighted_median_filter_auto
 from .ops.dense import dense_refine_flow, median3_flow
 from .ops.match import match_coarse_bidi
 from .ops.occlusion import coarse_occlusion_reconstruct
-from .ops.refine import (blf_refine_flow, lr_check, nnf_to_flow,
+from .ops.refine import (blf_refine_flow, flow_to_nnf, lr_check, nnf_to_flow,
                           outlier_removal)
 from .ops.resize import bilinear_resize, gaussian_filter, gaussian_pyramid
+from .ops.subpixel import subpixel_refine
 
 __all__ = ["prepare_pyramids", "compute_flow", "EPPMFlow", "check_supported"]
 
@@ -68,26 +76,27 @@ def prepare_pyramids(
     return levels, packs
 
 
-# (setting, ROADMAP.md item that ports it) of every branch not ported yet
-_NOT_PORTED = (
-    (lambda c: c.match_engine != "dense", "match_engine",
-     "Queue 1 item 14 (the PatchMatch engine)"),
-    (lambda c: not c.refine.wmf_fill_first, "refine.wmf_fill_first",
-     "Queue 1 item 13 (legacy WMF order)"),
-    (lambda c: c.subpixel_refine or c.dense_subpixel_fit,
-     "subpixel_refine/dense_subpixel_fit", "Queue 1 item 13 (subpixel)"),
-)
-
-
 def check_supported(cfg: EPPMConfig) -> None:
     """Raise NotImplementedError for a config that takes a branch the
-    port does not have yet, naming the ROADMAP item."""
-    for off_path, name, item in _NOT_PORTED:
-        if off_path(cfg):
-            raise NotImplementedError(
-                f"{name} other than the default is not ported yet: "
-                f"ROADMAP.md, {item}"
-            )
+    port does not have yet (the PatchMatch engine), naming the ROADMAP
+    item."""
+    if cfg.match_engine != "dense":
+        raise NotImplementedError(
+            f"match_engine={cfg.match_engine!r} is not ported yet: "
+            "ROADMAP.md, Queue 1 item 14 (the PatchMatch engine)"
+        )
+
+
+def _coarse_init(init_flow: torch.Tensor, ch: int, cw: int) -> torch.Tensor:
+    """Resize a full-resolution temporal init flow to the coarse level;
+    the values scale with the resolution ratio r = ch / h.  The resize's
+    indices take r as a double, as the JAX package's numpy does; its
+    ``* r`` multiplies by r rounded to float32, as XLA applies the weakly
+    typed constant (on every device alike: the product of two float32
+    values rounds the same from any wider precision), and its
+    multiply-adds are fused as XLA fuses this program."""
+    r = ch / init_flow.shape[0]
+    return bilinear_resize(init_flow, ch, cw, r, fused=True) * f32(r)
 
 
 def compute_flow(
@@ -101,27 +110,30 @@ def compute_flow(
     in [0, 1]) -> (H, W, 2) float32.  It runs on the frames' device: CUDA
     frames launch the kernels, CPU frames take their plain versions
     (``EPPMFlow`` moves the frames to its device, the card by default).
-    The default dense engine makes no random draws, so no generator is
-    taken."""
+    The dense engine makes no random draws, so no generator is taken.
+
+    ``init_flow`` (H, W, 2), on the frames' device, is a temporal warm
+    start (the previous pair's flow when streaming video) for the coarse
+    matcher: forward as given, backward negated (``MatchConfig.
+    warm_skip_global``).  ``fine_level_wmf`` adds one full-image weighted
+    median iteration after each fine level's smoothing."""
     check_supported(cfg)
-    if fine_level_wmf:
-        raise NotImplementedError(
-            "fine_level_wmf is not ported yet: ROADMAP.md, Queue 1 item 13"
-        )
-    if init_flow is not None:
-        raise NotImplementedError(
-            "init_flow (temporal warm start) is not ported yet: ROADMAP.md, "
-            "Queue 1 item 13"
-        )
     if img1.device != img2.device:
         raise ValueError(f"frames on {img1.device} and {img2.device}")
     levels1, packs1 = prepare_pyramids(img1, cfg)
     levels2, packs2 = prepare_pyramids(img2, cfg)
     top = len(packs1) - 1
 
+    ci = None
+    if init_flow is not None:
+        if init_flow.device != img1.device:
+            raise ValueError(f"init_flow on {init_flow.device}, frames on "
+                             f"{img1.device}")
+        ci = _coarse_init(init_flow.to(torch.float32),
+                          packs1[top].shape[0], packs1[top].shape[1])
     (tx1, ty1, c1), (tx2, ty2, c2) = match_coarse_bidi(
         levels1[top], levels2[top], cfg.cost, cfg.match,
-        packs1[top], packs2[top],
+        packs1[top], packs2[top], init_flow=ci,
     )
     otx, oty = tx1, ty1  # pre-LR matches: arbitration candidates
     tx1, ty1, c1, tx2, ty2, c2 = lr_check(
@@ -140,21 +152,37 @@ def compute_flow(
         oh, ow = packs1[lvl].shape[0], packs1[lvl].shape[1]
         flow = bilinear_resize(flow, oh, ow, ratio_up) * ratio_up
         if cfg.refine_impl == "dense":
+            # the parabola fit only on the last refine pass of level 0
+            n = cfg.dense_refine_passes
+            fit = cfg.dense_subpixel_fit and lvl == 0
             flow = dense_refine_flow(
                 flow, packs1[lvl], packs2[lvl], cfg.cost,
                 cfg.dense_search_radius, cfg.dense_cand_shape,
                 cfg.warp_dtype, cfg.dense_pass1_planes,
+                subpixel_fit=fit and n == 1,
+                subpixel_min_curv=cfg.dense_subpixel_min_curv,
             )
-            for _ in range(cfg.dense_refine_passes - 1):
+            for i in range(n - 1):
                 flow = dense_refine_flow(
                     median3_flow(flow), packs1[lvl], packs2[lvl],
                     cfg.pass2_cost, cfg.dense_search_radius,
                     cfg.pass2_cand_shape, cfg.warp_dtype,
                     cfg.dense_pass2_planes,
+                    subpixel_fit=fit and i == n - 2,
+                    subpixel_min_curv=cfg.dense_subpixel_min_curv,
                 )
         else:
             flow = blf_refine_flow(flow, packs1[lvl], packs2[lvl], cfg.cost)
         flow = flow_smoothing_auto(flow, levels1[lvl], cfg.refine)
+        if fine_level_wmf:
+            ftx, fty = flow_to_nnf(flow)
+            ftx, fty = weighted_median_filter_auto(
+                ftx, fty, levels1[lvl], cfg.refine, num_iter=1,
+                only_occlusion=False,
+            )
+            flow = nnf_to_flow(ftx, fty)
+    if cfg.subpixel_refine:
+        flow = subpixel_refine(flow, levels1[0], levels2[0], cfg.subpixel)
     return flow_smoothing_auto(flow, levels1[0], cfg.refine)
 
 
@@ -199,10 +227,17 @@ class EPPMFlow(nn.Module):
         self._img1, self._img2 = img1.to(self.device), img2.to(self.device)
         return self
 
-    def compute_flow(self) -> torch.Tensor:
+    def compute_flow(self, fine_level_wmf: bool = False,
+                     init_flow: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+        """The flow of the ``set_data`` pair; ``init_flow`` (moved to the
+        model's device) warm-starts the coarse match (``compute_flow``)."""
         if self._img1 is None:
             raise RuntimeError("set_data() must be called before compute_flow()")
-        return compute_flow(self._img1, self._img2, self.cfg)
+        if init_flow is not None:
+            init_flow = init_flow.to(self.device)
+        return compute_flow(self._img1, self._img2, self.cfg,
+                            fine_level_wmf, init_flow)
 
     def forward(self, img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
         return compute_flow(img1.to(self.device), img2.to(self.device),

@@ -494,3 +494,31 @@ def test_slice_on_the_card_matches_the_cpu(cuda):
     cpu = pipeline.compute_flow(img1, img2).numpy()
     d = np.abs(gpu - cpu).max(axis=-1)
     assert (d < 1e-3).mean() >= 0.98 and d.mean() < 0.05
+
+
+@pytest.mark.gpu
+def test_trunc_i32_on_the_card_matches_the_cpu(cuda):
+    """The saturating float -> int32 truncation gives the same values on
+    the card and the CPU (a plain cast does not: the card saturates, the
+    CPU gives -2^31), and the warm-started match targets agree too."""
+    from eppm_tpu_torch.ops._util import trunc_i32
+
+    x = torch.tensor([1e10, -1e10, 3.7e9, -3.7e9, float("nan"), 0.5, -0.5,
+                      -2.7, 2.7, float("inf"), -float("inf"), 2147483520.0,
+                      2147483648.0, -2147483648.0])
+    assert torch.equal(trunc_i32(x.to(cuda)).cpu(), trunc_i32(x))
+    (i1, p1), (i2, p2) = _packs(48, 64, seed=5)
+    init = torch.zeros((48, 64, 2))
+    init[..., 0], init[..., 1] = 2.0, -1.0
+    init[:6, :9] = UNKNOWN_FLOW
+    init[12:14, 4:10, 0] = -3.7e9
+    for skip in (True, False):
+        mcfg = dataclasses.replace(CFG.match, warm_skip_global=skip)
+        cpu = match.match_coarse_bidi(i1, i2, CFG.cost, mcfg, p1, p2,
+                                      init_flow=init)
+        gpu = match.match_coarse_bidi(i1.to(cuda), i2.to(cuda), CFG.cost,
+                                      mcfg, p1.to(cuda), p2.to(cuda),
+                                      init_flow=init.to(cuda))
+        for c, g in zip(cpu, gpu):
+            assert torch.equal(c[0], g[0].cpu()) and torch.equal(
+                c[1], g[1].cpu())

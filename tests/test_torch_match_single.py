@@ -105,7 +105,9 @@ def test_match_coarse_matches_jax():
 @pytest.mark.parametrize("h,w", [(48, 64), (24, 40)])
 def test_match_coarse_equals_the_bidirectional_halves(h, w):
     """Frames of one size: each direction of ``match_coarse_bidi`` is a
-    ``match_coarse`` call (with and without a mini level)."""
+    ``match_coarse`` call (with and without a mini level), and so it is
+    warm-started, the backward direction from the negated init (the warm
+    start is ported: it no longer raises)."""
     (i1, p1), (i2, p2), fwd = _coarse(h, w)
     a, b = (T(i1), T(p1)), (T(i2), T(p2))
     bidi = tmatch.match_coarse_bidi(a[0], b[0], TC.cost, TC.match, a[1], b[1])
@@ -113,6 +115,14 @@ def test_match_coarse_equals_the_bidirectional_halves(h, w):
     for one, half in zip((fwd, bwd), bidi):
         for x, y in zip(one, half):
             np.testing.assert_array_equal(x.numpy(), y.numpy())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmatch.match_coarse(a[0], b[0], TC.cost, TC.match,
-                            init_flow=torch.zeros((h, w, 2)))
+    init = torch.zeros((h, w, 2))
+    init[..., 0], init[..., 1] = 2.0, -1.0
+    bidi = tmatch.match_coarse_bidi(a[0], b[0], TC.cost, TC.match, a[1], b[1],
+                                    init_flow=init)
+    fwd = tmatch.match_coarse(a[0], b[0], TC.cost, TC.match, a[1], b[1],
+                              init_flow=init)
+    bwd = tmatch.match_coarse(b[0], a[0], TC.cost, TC.match, b[1], a[1],
+                              init_flow=-init)
+    for one, half in zip((fwd, bwd), bidi):
+        for x, y in zip(one, half):
+            np.testing.assert_array_equal(x.numpy(), y.numpy())

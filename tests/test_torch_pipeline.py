@@ -96,20 +96,33 @@ def test_eppmflow_runs_on_the_card_by_default(monkeypatch):
     dict(subpixel_refine=True),
 ])
 def test_settings_off_the_slice_raise(change):
+    """Only the PatchMatch engine is still off the port (ROADMAP item 14):
+    it raises, naming the item; the other settings run."""
     cfg = dataclasses.replace(DEFAULT_CONFIG, **change)
     img = torch.zeros((32, 48, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compute_flow(img, img, cfg)
-    with pytest.raises(NotImplementedError):
-        EPPMFlow(cfg)
+    if cfg.match_engine != "dense":
+        with pytest.raises(NotImplementedError, match="item 14"):
+            compute_flow(img, img, cfg)
+        with pytest.raises(NotImplementedError, match="item 14"):
+            EPPMFlow(cfg, device="cpu")
+        return
+    flow = EPPMFlow(cfg, device="cpu")(img, img)
+    assert tuple(flow.shape) == (32, 48, 2) and bool(torch.isfinite(flow).all())
 
 
 def test_temporal_init_and_fine_wmf_raise():
+    """``init_flow`` and ``fine_level_wmf`` are ported: both run (their
+    agreement with the JAX package: tests/test_torch_warm*.py and
+    tests/test_torch_fine_wmf_flow.py); a warm start on another device
+    than the frames raises."""
     img = torch.zeros((32, 48, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compute_flow(img, img, init_flow=torch.zeros((32, 48, 2)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compute_flow(img, img, fine_level_wmf=True)
+    init = torch.full((32, 48, 2), 1e10)
+    for kw in (dict(init_flow=init), dict(fine_level_wmf=True)):
+        flow = compute_flow(img, img, **kw)
+        assert tuple(flow.shape) == (32, 48, 2)
+        assert bool(torch.isfinite(flow).all())
+    with pytest.raises(ValueError, match="init_flow"):
+        compute_flow(img, img, init_flow=init.to(torch.device("meta")))
 
 
 def test_cli_cpu(tmp_path, capsys):

@@ -28,7 +28,8 @@ from eppm_tpu_torch.config import UNKNOWN_FLOW, UNKNOWN_FLOW_THRESH
 from eppm_tpu_torch.config import RefineConfig
 from eppm_tpu_torch.ops._util import FLT_MIN, exp_cephes, ftz, inv32, pad_edge
 from eppm_tpu_torch.ops.refine import (SMOOTH_CHUNK, _pad_const,
-                                       flow_smoothing, smoothing_weights)
+                                       chunk_sum21, flow_smoothing,
+                                       smoothing_weights)
 
 # The suite runs several test processes per host: one torch thread each
 # keeps them from oversubscribing the cores.
@@ -53,19 +54,18 @@ def _range_weight(a, b, gk: float):
 
 
 def _row(weights, flows):
-    """One chunk of the plain version: taps in order, known ones only,
-    the weighted flow in two interleaved partials; returns the closed
-    partials (flow (h, w, 2), weight (h, w))."""
-    part_f = [torch.zeros_like(flows[0]), torch.zeros_like(flows[0])]
+    """One chunk of the plain version: the known taps' weights in order,
+    their weighted flows (+0 for the others) in ``chunk_sum21``'s order;
+    returns the closed partials (flow (h, w, 2), weight (h, w))."""
+    prods = []
     part_w = torch.zeros_like(weights[0])
-    for t, (wt, f) in enumerate(zip(weights, flows)):
+    for wt, f in zip(weights, flows):
         known = (f[..., 0] <= UNKNOWN_FLOW_THRESH) & (
             f[..., 1] <= UNKNOWN_FLOW_THRESH)
         wk = wt * known.to(torch.float32)
-        part_f[t % 2] = part_f[t % 2] + wk[..., None] * torch.where(
-            known[..., None], f, 0.0)
+        prods.append(torch.where(known[..., None], wk[..., None] * f, 0.0))
         part_w = part_w + wk
-    return part_f[0] + part_f[1], part_w
+    return chunk_sum21(prods), part_w
 
 
 def paired_smoothing(flow, img, cfg=CFG, tail_reversed=False):
