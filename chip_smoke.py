@@ -63,6 +63,18 @@ final line is not printed):
      640x480 and 1080p;
    - ``subpixel_refine`` and ``dense_subpixel_fit`` on half-pixel shifts
      at 640x480 and 1080p, the interior EPE beside the integer default's;
+   - the PatchMatch engine (``match_engine="patchmatch"``) through
+     ``EPPMFlow`` on its default generator: (3, -2) and (37, 21) at
+     640x480, (5, 3) at 1080p, each pair's flow held by ``utils.guard.
+     check_flow`` (finite, warp error below 0.6x the zero-flow one), its
+     interior EPE, its time by ``utils.timing.DeviceTimer``, a second run
+     identical to the first, and its device events under
+     ``torch.profiler``, the pair's (at 1080p also the PatchMatch
+     stage's alone); the dense matcher's kernels (the multiwarp form of
+     kernel A, kernel D) launched no time;
+   - the command line on that engine: ``--gt`` with a KITTI 16-bit PNG
+     ground truth, and ``--eval-dir`` over two 640x480 sequences (the
+     scores of each);
 5. agreement: the port on the card against the port on the CPU (plain
    versions) at 192x256, under ``DEFAULT_CONFIG`` and with both plane
    flags, and under ``DEFAULT_CONFIG`` on a pair with black regions,
@@ -74,7 +86,12 @@ final line is not printed):
    ``match_coarse_bidi`` warm-started from such an init, and so does
    ``global_match_bidi`` on the descriptors of frames with black regions
    (``eppm_tpu_torch/testing.py::dark_rows``), where the float64 sums
-   are not exact in every order.
+   are not exact in every order; on the PatchMatch path, the card and
+   the CPU given the same draws (a sampler on a CPU generator whose draws
+   move to the card): the flow at 192x256 under the same contract, and
+   ``patchmatch``, ``patchmatch_scaled``, ``patchmatch_planefitting`` (4
+   iterations each) and ``line_propagate`` at 48x64 with identical
+   targets.
 
 Each phase logs its seconds.  The line before the last is one JSON object
 with a row per kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -1080,6 +1097,134 @@ def stream_case(dev, h=480, w=640, dx=3, dy=-2, seed=SEED + 30,
     check(all(e < 1.0 for e in epes), f"stream interior EPE {epes}")
 
 
+PM_CFG = dict(match_engine="patchmatch")
+# the dense matcher's kernels: the PatchMatch engine bypasses them
+DENSE_MATCHER = ["residual_costs_multiwarp", "global_argmax"]
+
+
+def pm_case(model, dev, h, w, dx, dy, seed) -> None:
+    """One synthetic pair through the PatchMatch ``model`` on its default
+    generator: a warm-up run, a run timed by ``DeviceTimer`` that must
+    be identical to it, ``check_flow`` (finite, at most 1% unknown, warp
+    error < 0.6x the zero-flow one), the interior EPE and launches per
+    pair; then the device events under ``torch.profiler`` of the pair
+    (``profile_pair``) and, at 1080p, of the PatchMatch stage alone."""
+    from eppm_tpu_torch.utils import DeviceTimer, check_flow
+
+    f1, f2 = shifted_pair(h, w, dx, dy, seed)
+    img1, img2 = (torch.from_numpy(f).to(dev) for f in (f1, f2))
+    first = model(img1, img2)
+    torch.cuda.synchronize()
+    before = {name: c.launches for name, c in counters().items()}
+    timer = DeviceTimer(dev).start()
+    flow = model(img1, img2)
+    ms = timer.stop() * 1e3
+    per_pair = {name: c.launches - before[name]
+                for name, c in counters().items() if c.launches > before[name]}
+    check(tuple(flow.shape) == (h, w, 2), f"flow shape {flow.shape}")
+    rep = check_flow(flow, img1, img2, max_unknown_frac=0.01,
+                     max_warp_ratio=0.6)
+    same = bool(torch.equal(first, flow))
+    epe = interior_epe(flow.cpu().numpy(), dx, dy, 16)
+    log(f"patchmatch {w}x{h} shift ({dx},{dy}) [synthetic]: {ms:.1f} ms "
+        f"(DeviceTimer)  check_flow: {rep}  interior EPE {epe:.4f}  two "
+        f"runs of the default generator {'identical' if same else 'DIFFER'}"
+        f"  launches per pair {per_pair}")
+    check(same, "two runs of the default generator differ")
+    check(per_pair.get("flow_smoothing_paired", 0) == (3 if h == 480 else 4),
+          f"smoothing launches per pair {per_pair}")
+    profile_pair(model, dev, h, w, dx, dy, seed)
+    if h == 1080:
+        profile_pm_stage(model.cfg, dev, h, w, dx, dy, seed)
+
+
+def profile_pm_stage(cfg, dev, h, w, dx, dy, seed) -> None:
+    """The PatchMatch stage alone: both searches (forward, then backward,
+    on one generator seeded with ``cfg.seed``) on the coarse level of a
+    synthetic pair, after a warm-up: its time by ``DeviceTimer``, then
+    under ``torch.profiler`` its device events, device busy and the
+    device kernels that take the most time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from eppm_tpu_torch.ops.patchmatch import patchmatch
+    from eppm_tpu_torch.pipeline import prepare_pyramids
+    from eppm_tpu_torch.utils import DeviceTimer
+
+    f1, f2 = shifted_pair(h, w, dx, dy, seed)
+    p1, p2 = (prepare_pyramids(torch.from_numpy(f).to(dev), cfg)[1][-1]
+              for f in (f1, f2))
+
+    def run():
+        g = torch.Generator(dev).manual_seed(cfg.seed)
+        patchmatch(p1, p2, g, cfg.patchmatch, cfg.cost)
+        patchmatch(p2, p1, g, cfg.patchmatch, cfg.cost)
+
+    run()
+    timer = DeviceTimer(dev).start()
+    run()
+    ms = timer.stop() * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    busy = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    total_us = sum(e.self_device_time_total for e in busy)
+    top = sorted(busy, key=lambda e: -e.self_device_time_total)[:4]
+    log(f"patchmatch stage {w}x{h} (coarse {p1.shape[1]}x{p1.shape[0]}, "
+        f"both directions) [synthetic]: {ms:.1f} ms (DeviceTimer), "
+        f"{sum(e.count for e in busy)} device events, device busy "
+        f"{total_us / 1e3:.3f} ms; most device time: "
+        + "; ".join(f"{e.key[:70]} {e.self_device_time_total / 1e3:.3f} ms "
+                    f"({e.count})" for e in top))
+
+
+def pm_cli_case(dev, h=480, w=640, seed=SEED + 50) -> None:
+    """``python -m eppm_tpu_torch.cli --set match_engine=patchmatch``, in
+    process: one pair with ``--gt`` a KITTI 16-bit PNG (the pixels whose
+    target leaves the frame invalid), then ``--eval-dir`` over two
+    sequences (shifts (3, -2) and (-6, 4)) with their .flo ground
+    truths; each EPE below 1."""
+    import contextlib
+    import io as _io
+    import os
+    import tempfile
+
+    from eppm_tpu_torch import cli
+    from eppm_tpu_torch.io import write_flo, write_kitti_flow, write_ppm
+
+    def run(args):
+        buf = _io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main([*args, "--set", "match_engine=patchmatch",
+                           "--device", dev.type, "--json"])
+        check(rc == 0, f"cli {args}: rc {rc}")
+        return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, (dx, dy) in enumerate([(3, -2), (-6, 4)]):
+            d = os.path.join(tmp, f"seq{k}")
+            os.mkdir(d)
+            f1, f2 = shifted_pair(h, w, dx, dy, seed + k)
+            write_ppm(os.path.join(d, "frame10.ppm"), f1)
+            write_ppm(os.path.join(d, "frame11.ppm"), f2)
+            gt = np.zeros((h, w, 2), np.float32)
+            gt[...] = (dx, dy)
+            write_flo(os.path.join(d, "flow10.flo"), gt)
+            write_kitti_flow(os.path.join(d, "flow10.png"), gt,
+                             interior(h, w, dx, dy, 0))
+        d = os.path.join(tmp, "seq0")
+        one = run([os.path.join(d, "frame10.ppm"),
+                   os.path.join(d, "frame11.ppm"), "--gt",
+                   os.path.join(d, "flow10.png"), "--time"])
+        log(f"cli --gt (KITTI PNG16) {w}x{h} [synthetic]: {one}")
+        check(one["epe"] < 1.0, f"cli --gt EPE {one['epe']}")
+        rep = run(["--eval-dir", tmp, "--border", "16"])
+        log(f"cli --eval-dir, 2 sequences {w}x{h} [synthetic]: {rep}")
+        check(sorted(rep["sequences"]) == ["seq0", "seq1"],
+              f"eval-dir sequences {sorted(rep['sequences'])}")
+        check(all(r["epe"] < 1.0 for r in rep["sequences"].values()),
+              "eval-dir EPE")
+
+
 def phase_end_to_end(dev) -> dict:
     log("== phase 4: end to end (synthetic pairs), one path at a time")
     from eppm_tpu_torch.config import DEFAULT_CONFIG as cfg
@@ -1192,6 +1337,19 @@ def phase_end_to_end(dev) -> dict:
             log(f"{name} {case[1]}x{case[0]} shift ({case[2] / 2},"
                 f"{case[3] / 2}): interior EPE {epes[case]:.4f} against the "
                 f"integer default's {base[case]:.4f}")
+
+    log("-- patchmatch: match_engine='patchmatch', the default generator")
+    pm_kernels = ["cost_terms", "residual_costs", "flow_smoothing_paired",
+                  "weighted_median_filter"]
+    model = EPPMFlow(dataclasses.replace(cfg, **PM_CFG))
+    for path, run in (
+            ("patchmatch", lambda: [pm_case(model, dev, *case)
+                                    for case in cases[:3]]),
+            ("patchmatch CLI", lambda: pm_cli_case(dev))):
+        launches[path] = drive(path, pm_kernels, run)
+        for name in DENSE_MATCHER:
+            check(launches[path][name] == 0,
+                  f"{name} launched on the {path} path")
     return launches
 
 
@@ -1297,6 +1455,64 @@ def phase_agreement(dev) -> None:
         f"t2x) targets identical on the card and the CPU")
     check(all(v == 1.0 for v in share),
           "global_match_bidi targets differ between card and CPU on dark_rows")
+    pm_agreement(dev)
+
+
+def pm_agreement(dev) -> None:
+    """The PatchMatch path on the card against the CPU, given the same
+    draws: CUDA and CPU generators make different streams, so both sides
+    draw from a CPU generator of one seed (the card's draws move to the
+    card).  The flow at 192x256 under the contract; the engine's four
+    searches at 48x64 (4 iterations each) with identical targets."""
+    from eppm_tpu_torch.config import DEFAULT_CONFIG as base
+    from eppm_tpu_torch.ops import patchmatch as pm
+    from eppm_tpu_torch.ops.cost import patch_cost
+    from eppm_tpu_torch.pipeline import compute_flow
+
+    def gen():
+        return torch.Generator().manual_seed(base.seed)
+
+    cfg = dataclasses.replace(base, **PM_CFG)
+    h, w = 192, 256
+    f1, f2 = shifted_pair(h, w, 3, -2, SEED + 23)
+    gpu = compute_flow(torch.from_numpy(f1).to(dev),
+                       torch.from_numpy(f2).to(dev), cfg,
+                       samplers=(pm.TorchSampler(gen()),) * 2).cpu().numpy()
+    cpu = compute_flow(torch.from_numpy(f1), torch.from_numpy(f2), cfg,
+                       generator=gen()).numpy()
+    d = np.abs(gpu - cpu).max(axis=-1)
+    agree = float((d < 1e-3).mean())
+    log(f"{h}x{w} patchmatch: {agree:.4%} of pixels agree within 1e-3, "
+        f"mean |diff| {float(d.mean()):.3g}, max {float(d.max()):.3g}")
+    check(agree >= 0.98, f"patchmatch: only {agree:.2%} of pixels agree")
+    check(float(d.mean()) < 0.05, f"patchmatch: mean |diff| {float(d.mean())}")
+
+    (_, p1), (_, p2) = _packs(48, 64, -3, 2, SEED + 24, dev)
+    tx, ty = pm.random_init(gen(), 48, 64)
+    c0 = patch_cost(p1.cpu(), p2.cpu(), tx, ty, cfg.cost)
+    pcfg = dataclasses.replace(cfg.patchmatch, num_iters=4)
+    runs = {
+        "patchmatch": lambda a, b, s: pm.patchmatch(a, b, s, pcfg, cfg.cost),
+        "patchmatch_scaled": lambda a, b, s: pm.patchmatch_scaled(
+            a, b, s, pcfg, cfg.cost),
+        "patchmatch_planefitting": lambda a, b, s: pm.patchmatch_planefitting(
+            a, b, s, pcfg, cfg.cost),
+        "line_propagate": lambda a, b, s: pm.line_propagate(
+            a, b, tx.to(a.device), ty.to(a.device), c0.to(a.device),
+            cfg.cost),
+    }
+    for name, run in runs.items():
+        t0 = time.perf_counter()
+        g = run(p1, p2, pm.TorchSampler(gen()))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        c = run(p1.cpu(), p2.cpu(), pm.TorchSampler(gen()))
+        t2 = time.perf_counter()
+        same = [bool(torch.equal(a.cpu(), b)) for a, b in zip(g, c)]
+        log(f"{name} 48x64: outputs {same} identical on the card and the CPU "
+            f"(card {(t1 - t0) * 1e3:.1f} ms, CPU {(t2 - t1) * 1e3:.1f} ms)")
+        check(same[0] and same[1], f"{name} targets differ between card and "
+              "CPU")
 
 
 SOURCES = {  # name: (source, the TPU kernel it replaces, the path it runs on)

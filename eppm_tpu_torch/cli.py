@@ -1,18 +1,29 @@
-"""Command line for one frame pair or a stream of frames (the single-pair
-and streaming parts of ``eppm_tpu/cli.py``):
+"""Command line for one frame pair, a stream of frames or a directory of
+sequences with ground truth (counterpart of ``eppm_tpu/cli.py``):
 
   python -m eppm_tpu_torch.cli f1.ppm f2.ppm -o flow.flo [--viz flow.png]
-                                [--set k=v] [--time] [--device cuda|cpu]
+                                [--gt gt.flo|gt.png [--border N]] [--time]
+                                [--set k=v] [--device cuda|cpu] [--json]
   python -m eppm_tpu_torch.cli --frames-dir DIR --out-dir OUT [--temporal]
                                 [--exact-readback] [--set k=v] [--device ...]
+  python -m eppm_tpu_torch.cli --eval-dir DIR [--pattern F1,F2,GT]
+                                [--border N] [--set k=v] [--json]
+  python -m eppm_tpu_torch.cli a.ppm b.ppm --set match_engine=patchmatch
 
 Frames are PPM/PGM/PNM or PNG.  The stream computes the flow of every
 consecutive pair of DIR's frames (sorted by name) and writes OUT/<first
 frame's name>.flo for each; ``--temporal`` warm-starts each pair from the
-previous pair's flow, which stays on the device.  The flow runs on the
-CUDA device by default and raises where there is none; ``--device cpu``
-runs the plain PyTorch versions of the kernels.  ``--set`` takes dotted
-config paths, e.g. ``--set refine.blf_sigma_spatial=3.0``.
+previous pair's flow, which stays on the device.  ``--gt`` scores the flow
+against a Middlebury .flo or a KITTI 16-bit PNG (its invalid pixels
+skipped): EPE, AAE in degrees and the share of pixels off by more than 3
+px; ``--eval-dir`` does so for every sequence directory of DIR holding
+the files of ``--pattern``.  The flow runs on the CUDA device by default
+and raises where there is none; ``--device cpu`` runs the plain PyTorch
+versions of the kernels.  ``--set`` takes dotted config paths, e.g.
+``--set refine.blf_sigma_spatial=3.0``, and ``--set preset=fast`` the
+overrides of a preset (``PRESETS``), ahead of the others.  The
+single-pair and stream reports are one JSON line; the ``--eval-dir``
+report is indented unless ``--json``.
 """
 
 from __future__ import annotations
@@ -30,19 +41,46 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
-from .config import DEFAULT_CONFIG, EPPMConfig
-from .io import (IMAGE_EXTS, read_image, read_image_batch, write_flo,
-                 write_png, write_ppm)
+from .config import DEFAULT_CONFIG, UNKNOWN_FLOW, EPPMConfig
+from .io import (IMAGE_EXTS, read_flo, read_image, read_image_batch,
+                 read_kitti_flow, write_flo, write_png, write_ppm)
+from .metrics import bad_pixel_rate, flow_error
 from .ops.color import flow_to_color
 from .pipeline import compute_flow
 
-__all__ = ["main", "apply_overrides"]
+__all__ = ["main", "apply_overrides", "PRESETS"]
+
+# Named presets (``eppm_tpu/cli.py::PRESETS``): ``--set preset=NAME``
+# expands to these overrides ahead of every other override.  "fast": the
+# plus-shaped candidate set, a sparser pass-1 grid (radius 8, stride 4)
+# and the radius-6 final smoothing.
+PRESETS = {
+    "fast": [
+        "dense_cand_shape=plus",
+        "cost.patch_stride=4",
+        "cost.patch_radius=8",
+        "refine.blf_sigma_spatial=3.0",
+    ],
+}
 
 
 def apply_overrides(cfg: EPPMConfig, overrides: List[str]) -> EPPMConfig:
     """Apply "dotted.path=value" overrides to the (frozen) config tree;
-    values parse as Python literals, else as strings."""
+    values parse as Python literals, else as strings.  ``preset=NAME``
+    expands to the preset's overrides, which go first wherever it stands,
+    so an explicit override always wins over a preset's."""
+    presets: List[str] = []
+    user: List[str] = []
     for ov in overrides:
+        if ov.startswith("preset="):
+            name = ov.split("=", 1)[1]
+            if name not in PRESETS:
+                raise SystemExit(f"unknown preset {name!r} (have: "
+                                 f"{sorted(PRESETS)})")
+            presets.extend(PRESETS[name])
+        else:
+            user.append(ov)
+    for ov in presets + user:
         if "=" not in ov:
             raise SystemExit(f"--set expects key=value, got {ov!r}")
         path, raw = ov.split("=", 1)
@@ -68,6 +106,48 @@ def _load(path: str, device: torch.device) -> torch.Tensor:
     if img.dtype != np.uint8:
         raise SystemExit(f"{path}: expected an 8-bit image")
     return torch.from_numpy(img).to(device)
+
+
+def _evaluate(flow: np.ndarray, gt_path: str, border: int) -> dict:
+    """EPE, AAE (degrees) and the share of pixels off by more than 3 px
+    against the ground truth at ``gt_path``: a .flo, or a KITTI 16-bit
+    PNG whose invalid pixels become ``UNKNOWN_FLOW`` so that the metrics
+    skip them; all three over the pixels ``border`` px inside the
+    frame."""
+    if gt_path.lower().endswith(".png"):
+        gt, valid = read_kitti_flow(gt_path)
+        gt = np.where(valid[..., None], gt, np.float32(UNKNOWN_FLOW))
+    else:
+        gt = read_flo(gt_path)
+    epe, aae = flow_error(flow, gt, border=border)
+    if border > 0:
+        flow = flow[border:-border, border:-border]
+        gt = gt[border:-border, border:-border]
+    return {"epe": epe, "aae_deg": aae,
+            "bad3": bad_pixel_rate(flow, gt, thresh=3.0)}
+
+
+def evaluate_dir(eval_dir: str, pattern: str, cfg: EPPMConfig,
+                 device: torch.device, border: int = 0) -> dict:
+    """The flow of each sequence directory of ``eval_dir`` (sorted) that
+    holds the two frames of ``pattern`` ("F1,F2,GT"), scored against its
+    ground truth where it has one ({"epe": None} where not) -> {
+    "sequences": {name: report}, "mean_epe": the mean of the EPEs}."""
+    f1n, f2n, gtn = pattern.split(",")
+    results = {}
+    for name in sorted(os.listdir(eval_dir)):
+        d = os.path.join(eval_dir, name)
+        f1, f2, gt = (os.path.join(d, n) for n in (f1n, f2n, gtn))
+        if not (os.path.isfile(f1) and os.path.isfile(f2)):
+            continue
+        flow = compute_flow(_load(f1, device), _load(f2, device), cfg)
+        flow = flow.cpu().numpy()
+        results[name] = (_evaluate(flow, gt, border) if os.path.isfile(gt)
+                         else {"epe": None})
+    epes = [r["epe"] for r in results.values() if r["epe"] is not None]
+    return {"sequences": results,
+            "mean_epe": float(np.mean(epes)) if epes else None,
+            **_device_report(device)}
 
 
 def _device_report(device: torch.device) -> dict:
@@ -195,6 +275,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--exact-readback", action="store_true",
                    help="stream mode: read the flow back as float32 instead "
                         "of 1/64-px int16 (error <= 1/128 px)")
+    p.add_argument("--gt", help="ground truth to score the flow against: "
+                                 ".flo, or a KITTI 16-bit flow PNG")
+    p.add_argument("--border", type=int, default=0,
+                   help="border pixels to leave out of the scores")
+    p.add_argument("--eval-dir", metavar="DIR",
+                   help="score every sequence directory under DIR")
+    p.add_argument("--pattern", default="frame10.ppm,frame11.ppm,flow10.flo",
+                   metavar="F1,F2,GT",
+                   help="file names inside each sequence dir for --eval-dir")
+    p.add_argument("--json", action="store_true",
+                   help="one JSON line for the --eval-dir report too")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="device to run on (default cuda; raises without one)")
     args = p.parse_args(argv)
@@ -207,8 +298,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(json.dumps(stream(args.frames_dir, args.out_dir, cfg, device,
                                 args.temporal, args.exact_readback)))
         return 0
+    if args.eval_dir:
+        print(json.dumps(evaluate_dir(args.eval_dir, args.pattern, cfg,
+                                      device, args.border),
+                         indent=None if args.json else 2))
+        return 0
     if not (args.frame1 and args.frame2):
-        p.error("frame1 and frame2 are required (or --frames-dir)")
+        p.error("frame1 and frame2 are required (or --frames-dir, "
+                "--eval-dir)")
     img1 = _load(args.frame1, device)
     img2 = _load(args.frame2, device)
     if img1.shape != img2.shape:
@@ -228,6 +325,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     report = {"shape": list(flow.shape), **_device_report(device)}
     if args.time:
         report["seconds"] = seconds
+    if args.gt:
+        report.update(_evaluate(flow, args.gt, args.border))
     print(json.dumps(report))
     return 0
 

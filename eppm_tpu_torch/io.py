@@ -1,13 +1,16 @@
-"""Image and flow file I/O in NumPy: Netpbm (PPM/PGM), PNG and Middlebury
-.flo (copies of ``eppm_tpu/io/ppm.py``, ``png.py`` and ``flo.py``, which
-the port cannot import: ``import eppm_tpu`` imports jax).  Pure Python:
-the JAX package's optional native library is not used.
+"""Image and flow file I/O in NumPy: Netpbm (PPM/PGM), PNG, Middlebury
+.flo and KITTI's 16-bit PNG flow (copies of ``eppm_tpu/io/ppm.py``,
+``png.py``, ``flo.py`` and ``kitti.py``, which the port cannot import:
+``import eppm_tpu`` imports jax).  Pure Python: the JAX package's optional
+native library is not used.
 
 PNM spec: the reference loader ``bao_loadimage_ppm``
 (basic/bao_basic.cpp:137-218) reads binary P6; P5 and the ASCII variants
 P2/P3 and 16-bit maxval are read as well.  .flo spec
 (3rdparty/middlebury/flowIO.cpp): little-endian float32 tag 202021.25,
 int32 width, int32 height, then (u, v) float32 pairs in row-major order.
+KITTI 2012/2015 flow: a 16-bit RGB PNG, channels 1-2 (u, v) * 64 + 2^15,
+channel 3 the validity mask.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ TAG_FLOAT = 202021.25
 IMAGE_EXTS = (".ppm", ".pgm", ".pnm", ".png")
 
 __all__ = ["read_ppm", "write_ppm", "read_png", "write_png", "read_image",
-           "read_image_batch", "read_flo", "write_flo", "TAG_FLOAT",
+           "read_image_batch", "read_flo", "write_flo", "read_png16",
+           "write_png16", "read_kitti_flow", "write_kitti_flow", "TAG_FLOAT",
            "IMAGE_EXTS"]
 
 
@@ -235,6 +239,47 @@ def read_png(path: str) -> np.ndarray:
         pairs = rows.reshape(h, w, nch, 2).astype(np.uint16)
         out = pairs[..., 0] * 256 + pairs[..., 1]
     return out[:, :, 0] if nch == 1 else out
+
+
+def write_png16(path: str, img: np.ndarray) -> None:
+    """Write (H, W, 3) uint16 as a 16-bit truecolor PNG."""
+    img = np.asarray(img)
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError("write_png16 expects (H, W, 3)")
+    write_png(path, img.astype(np.uint16))
+
+
+def read_png16(path: str) -> np.ndarray:
+    """Read a 16-bit truecolor PNG -> (H, W, 3) uint16."""
+    img = read_png(path)
+    if img.dtype != np.uint16 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"{path}: expected 16-bit truecolor PNG, got "
+                         f"{img.dtype} shape {img.shape}")
+    return img
+
+
+def read_kitti_flow(path: str):
+    """A KITTI flow PNG -> (flow (H, W, 2) float32, valid (H, W) bool);
+    the flow is 0 where it is not valid."""
+    img = read_png16(path)
+    flow = (img[..., :2].astype(np.float32) - 2**15) / 64.0
+    valid = img[..., 2] > 0
+    flow[~valid] = 0.0
+    return flow, valid
+
+
+def write_kitti_flow(path: str, flow, valid=None) -> None:
+    """Write (H, W, 2) flow (and an (H, W) validity mask, all valid by
+    default) as a KITTI flow PNG: 1/64 px, rounded, clipped to 16 bits."""
+    flow = np.asarray(flow, np.float32)
+    h, w = flow.shape[:2]
+    if valid is None:
+        valid = np.ones((h, w), bool)
+    out = np.zeros((h, w, 3), np.uint16)
+    q = np.clip(flow * 64.0 + 2**15, 0, 2**16 - 1)
+    out[..., :2] = (q + 0.5).astype(np.uint16)
+    out[..., 2] = np.asarray(valid).astype(np.uint16)
+    write_png16(path, out)
 
 
 def read_image(path: str) -> np.ndarray:

@@ -1,12 +1,14 @@
-"""Flow-quality metrics in NumPy (copies of ``eppm_tpu/metrics.py``'s
-``flow_error`` and ``warp_error``, which the port cannot import).
+"""Flow-quality metrics in NumPy (copies of ``eppm_tpu/metrics.py``,
+which the port cannot import).
 
 ``flow_error`` follows ``bao_calc_flow_error`` (basic/bao_flow_tools.cpp:
 64-141): a ground-truth pixel counts when either component is nonzero and
 not the unknown sentinel; EPE is the mean L2 endpoint error, AAE the mean
 angle between (u, v, 1) vectors in degrees (with the reference's pi =
-3.14159).  ``warp_error`` is a ground-truth-free proxy: the mean absolute
-difference between frame 1 and frame 2 sampled bilinearly along the flow.
+3.14159).  ``bad_pixel_rate`` follows ``bao_calc_flow_error_percentage``
+(:114-141), whose validity rule differs: either component known.
+``warp_error`` is a ground-truth-free proxy: the mean absolute difference
+between frame 1 and frame 2 sampled bilinearly along the flow.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from .config import UNKNOWN_FLOW_THRESH
 
 _PI = 3.14159  # the reference's value of pi (flow_tools.cpp:88,103)
 
-__all__ = ["flow_error", "warp_error"]
+__all__ = ["flow_error", "bad_pixel_rate", "warp_error"]
 
 
 def flow_error(
@@ -46,6 +48,24 @@ def flow_error(
     ang = np.arccos(np.clip(cos_val, -1.0, 1.0))
     aae = float(ang[valid].mean() * 180.0 / _PI)
     return epe, aae
+
+
+def bad_pixel_rate(flow: np.ndarray, gt: np.ndarray, thresh: float = 3.0,
+                   return_error_map: bool = False):
+    """Fraction of valid pixels with EPE > ``thresh`` (flow_tools.cpp:
+    114-141); with ``return_error_map`` also the per-pixel EPE map, zero
+    where the ground truth is unknown (the reference's ``err_map``)."""
+    flow = np.asarray(flow, dtype=np.float64)
+    gt = np.asarray(gt, dtype=np.float64)
+    gu, gv = gt[..., 0], gt[..., 1]
+    valid = (np.abs(gu) <= UNKNOWN_FLOW_THRESH) | (
+        np.abs(gv) <= UNKNOWN_FLOW_THRESH
+    )
+    epe = np.sqrt(((flow - gt) ** 2).sum(-1))
+    rate = float((epe[valid] > thresh).mean()) if valid.any() else 0.0
+    if return_error_map:
+        return rate, np.where(valid, epe, 0.0)
+    return rate
 
 
 def warp_error(img1: np.ndarray, img2: np.ndarray, flow: np.ndarray) -> float:

@@ -27,6 +27,7 @@ not Pallas kernels in the JAX package and stay plain torch here.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Iterable, List, Sequence, Tuple
 
@@ -37,10 +38,11 @@ from ..config import CostConfig
 from ._util import exp_cephes, ftz, inv32, pad_edge, popcount8, shift2d
 
 __all__ = ["pack_frame", "make_patch_stack", "patch_cost_stack", "tap_weight",
-           "cost_constants", "ad_census", "bilateral_cost", "PLANE_COEFS",
-           "plane_offsets",
-           "patch_cost_planefitting", "patch_cost_ad_l2", "quantize_cost",
-           "TAP_CHUNK"]
+           "cost_constants", "ad_census", "census_lut", "bilateral_cost",
+           "PLANE_COEFS", "plane_offsets", "patch_cost_offsets", "patch_cost",
+           "patch_cost_candidates", "patch_cost_scaled",
+           "scaled_tap_offsets", "patch_cost_planefitting",
+           "patch_cost_ad_l2", "quantize_cost", "TAP_CHUNK"]
 
 # Taps per partial sum of the cost (the JAX package's ``cost_tap_chunk``).
 TAP_CHUNK = 25
@@ -196,6 +198,94 @@ def plane_offsets(cfg: CostConfig) -> List[Tuple[Tuple[int, int], ...]]:
     return tables
 
 
+@functools.lru_cache(maxsize=16)
+def census_lut(inv_lam_cen2: float, device=None) -> torch.Tensor:
+    """c_cen of every XOR of two 8-bit census signatures (256,) float32,
+    computed by the operations of ``ad_census``: looking a term up here
+    gives its bits.  Made once per device."""
+    ham = popcount8(torch.arange(256, dtype=torch.int32, device=device))
+    ham = ham.to(torch.float32)
+    return 1.0 - exp_cephes(-(ham * ham) * inv_lam_cen2)
+
+
+@functools.lru_cache(maxsize=256)
+def _column(vals, dtype, device) -> torch.Tensor:
+    """The values as a (T, 1, 1, 1) tensor on ``device``, made once."""
+    return torch.tensor(vals, dtype=dtype, device=device).view(-1, 1, 1, 1)
+
+
+@functools.lru_cache(maxsize=64)
+def _chunk_tables(taps1, taps2, sigma_spatial: float, base: int, h: int,
+                  w: int, device):
+    """Per chunk of ``TAP_CHUNK`` taps, on ``device``: the frame-1 row and
+    column indices into a pack padded by ``base`` ((T, h, 1), (T, 1, w)),
+    the frame-2 offsets (T, 1, 1, 1) int32 (None for ``taps2=None``) and
+    the spatial weights (T, 1, 1, 1) float32.  Made once per set, so a
+    call copies nothing from the host (a copy would wait for the
+    device)."""
+    def col(vals, dtype):
+        return _column(tuple(vals), dtype, device)
+
+    out = []
+    for c0 in range(0, len(taps1), TAP_CHUNK):
+        chunk = taps1[c0 : c0 + TAP_CHUNK]
+        iy = col([base + i for i, _ in chunk], torch.int64)[:, :, 0]
+        ix = col([base + j for _, j in chunk], torch.int64)[:, 0]
+        iy = iy + torch.arange(h, device=device)[:, None]
+        ix = ix + torch.arange(w, device=device)
+        off2 = None
+        if taps2 is not None:
+            chunk2 = taps2[c0 : c0 + TAP_CHUNK]
+            off2 = (col([i for i, _ in chunk2], torch.int32),
+                    col([j for _, j in chunk2], torch.int32))
+        gws = col([tap_weight(i, j, sigma_spatial) for i, j in chunk],
+                  torch.float32)
+        out.append((chunk, iy, ix, off2, gws))
+    return out
+
+
+def _chunk_sums(parts) -> torch.Tensor:
+    """sum(w * term) / max(sum(w), 1e-30) from per-chunk (w * term, w)
+    stacks (T, ...): the taps of a chunk add in table order into the
+    chunk's partial sums, the partial sums in chunk order — the order of
+    ``bilateral_cost``, so the bits are its."""
+    cost_sum = weight_sum = 0.0
+    for prods, wgts in parts:
+        part_c, part_w = prods[0], wgts[0]
+        for t in range(1, prods.shape[0]):
+            part_c = part_c + prods[t]
+            part_w = part_w + wgts[t]
+        cost_sum = cost_sum + part_c
+        weight_sum = weight_sum + part_w
+    return cost_sum / weight_sum.clamp_min(1e-30)
+
+
+def _as_fields(*fields: torch.Tensor):
+    """(H, W) fields as (1, H, W), and whether to drop the candidate dim
+    again."""
+    single = fields[0].dim() == 2
+    return [f[None] if single else f for f in fields], single
+
+
+def _gather(flat: torch.Tensor, ty, tx, h: int, w: int) -> torch.Tensor:
+    """Rows of ``flat`` (h * w, C) at (ty, tx), each clamped to the frame
+    (CUDA texture clamp addressing)."""
+    return flat[(ty.clamp(0, h - 1) * w + tx.clamp(0, w - 1)).long()]
+
+
+def _weight_and_ad(center1, center2, p1, p2, gws, inv_sig_r2: float,
+                   inv_lam_ad2: float):
+    """The range-and-space weights w and the AD terms c_ad of a chunk of
+    tap pairs (frame-1 taps p1 (T, 1, H, W, 4), frame-2 taps p2 (T, K, H,
+    W, 4), spatial weights gws (T, 1, 1, 1)), in ``bilateral_cost``'s
+    operations."""
+    dr1 = maxabs3(center1, p1[..., :3])
+    dr2 = maxabs3(center2, p2[..., :3])
+    wgt = ftz(exp_cephes(-(dr1 * dr1 + dr2 * dr2) * inv_sig_r2) * gws)
+    ad = maxabs3(p1[..., :3], p2[..., :3])
+    return wgt, 1.0 - exp_cephes(-(ad * ad) * inv_lam_ad2)
+
+
 def patch_cost_offsets(
     pack1: torch.Tensor,
     pack2: torch.Tensor,
@@ -203,28 +293,103 @@ def patch_cost_offsets(
     ty: torch.Tensor,
     cfg: CostConfig,
     offsets2: Sequence[Tuple[int, int]],
+    pack1_halo: int = 0,
 ) -> torch.Tensor:
-    """Gathered cost at absolute targets (tx, ty) (H, W) int32 with frame-2
-    tap offsets ``offsets2`` (frame-1 taps follow ``cfg.tap_offsets``);
-    every read clamps to the frame -> (H, W) float32, unquantized
-    (``eppm_tpu/ops/cost.py::_patch_cost_offsets``)."""
-    H, W = tx.shape
+    """Gathered cost at absolute targets (tx, ty), int32 (H, W) or K
+    candidate fields (K, H, W), with frame-2 tap offsets ``offsets2``
+    (frame-1 taps follow ``cfg.tap_offsets``); every frame-2 read clamps
+    to the frame -> float32 of the targets' shape, unquantized
+    (``eppm_tpu/ops/cost.py::_patch_cost_offsets``).  ``pack1`` may carry
+    ``pack1_halo`` rows and columns of context on each side (a tile).
+
+    Each chunk of ``TAP_CHUNK`` taps is one pass over (T, K, H, W)
+    tensors: one gather of the frame-2 taps, then the range weights and
+    the AD + census terms of all its taps at once (the census term looked
+    up in ``census_lut``).  Only the running sums stay a loop, in table
+    order: the result is the bits of the per-tap ``bilateral_cost``, at
+    a few hundred launches a call instead of ~230 a tap."""
+    (tx, ty), single = _as_fields(tx, ty)
+    H, W = tx.shape[-2:]
+    H2, W2 = pack2.shape[0], pack2.shape[1]
+    R = cfg.patch_radius
+    pad_extra = max(R - pack1_halo, 0)
+    base = pack1_halo + pad_extra
+    pad1 = pad_edge(pack1, pad_extra, pad_extra) if pad_extra else pack1
+    flat2 = pack2.reshape(H2 * W2, 4)
+    inv_lam_ad2, inv_lam_cen2, inv_sig_r2 = cost_constants(cfg)
+    lut = census_lut(inv_lam_cen2, pack1.device)
+    center1 = pad1[base : base + H, base : base + W, :3]
+    center2 = _gather(flat2, ty, tx, H2, W2)[..., :3]
+    parts = []
+    for _, iy, ix, (dy2, dx2), gws in _chunk_tables(
+            tuple(cfg.tap_offsets), tuple(offsets2), cfg.sigma_spatial, base,
+            H, W, pack1.device):
+        p1 = pad1[iy, ix][:, None]
+        p2 = _gather(flat2, ty + dy2, tx + dx2, H2, W2)
+        wgt, c_ad = _weight_and_ad(center1, center2, p1, p2, gws,
+                                   inv_sig_r2, inv_lam_ad2)
+        x = p1[..., 3].to(torch.int64) ^ p2[..., 3].to(torch.int64)
+        parts.append((wgt * (c_ad + lut[x]), wgt))
+    cost = _chunk_sums(parts)
+    return cost[0] if single else cost
+
+
+def patch_cost(pack1, pack2, tx, ty, cfg: CostConfig = CostConfig(),
+               pack1_halo: int = 0) -> torch.Tensor:
+    """Fronto-parallel gathered AD + census cost (bao_pmflow_kernel.cu:
+    255-301; ``eppm_tpu/ops/cost.py::patch_cost``): (H, W) targets ->
+    (H, W) float32, unquantized."""
+    return patch_cost_offsets(pack1, pack2, tx, ty, cfg, cfg.tap_offsets,
+                              pack1_halo)
+
+
+def patch_cost_candidates(pack1, pack2, txs, tys,
+                          cfg: CostConfig = CostConfig()) -> torch.Tensor:
+    """The fronto cost of K candidate fields (K, H, W) -> (K, H, W), all K
+    in one pass (``eppm_tpu/ops/cost.py::patch_cost_candidates``)."""
+    return patch_cost_offsets(pack1, pack2, txs, tys, cfg, cfg.tap_offsets)
+
+
+def scaled_tap_offsets(taps, scale: torch.Tensor):
+    """Frame-2 offsets (floor(dy * s), floor(dx * s)) of the scaled
+    cost, int32 (T, *scale.shape): the float32 product of the tap offset
+    and the per-pixel scale, floored (``eppm_tpu/ops/cost.py:432-433``).
+    """
+    shape = (-1,) + (1,) * scale.dim()
+    fy = _column(tuple(i for i, _ in taps), torch.float32, scale.device)
+    fx = _column(tuple(j for _, j in taps), torch.float32, scale.device)
+    return (torch.floor(fy.view(shape) * scale).to(torch.int32),
+            torch.floor(fx.view(shape) * scale).to(torch.int32))
+
+
+def patch_cost_scaled(pack1, pack2, tx, ty, scale,
+                      cfg: CostConfig = CostConfig()) -> torch.Tensor:
+    """Scaled-patch bilateral AD cost (_d_compute_patch_dist_scaled,
+    bao_pmflow_kernel.cu:588-634; ``eppm_tpu/ops/cost.py::
+    patch_cost_scaled``): frame-2 taps at clamp(t + floor(d * scale)) with
+    a per-pixel float32 ``scale``; no census term (the reference
+    comments it out).  Targets and scale (H, W) or (K, H, W); chunks of
+    ``TAP_CHUNK`` taps as in ``patch_cost_offsets``."""
+    (tx, ty, scale), single = _as_fields(tx, ty, scale)
+    H, W = tx.shape[-2:]
     H2, W2 = pack2.shape[0], pack2.shape[1]
     R = cfg.patch_radius
     pad1 = pad_edge(pack1, R, R)
     flat2 = pack2.reshape(H2 * W2, 4)
-
-    def at2(dy: int, dx: int) -> torch.Tensor:
-        cy = (ty + dy).clamp(0, H2 - 1)
-        cx = (tx + dx).clamp(0, W2 - 1)
-        return flat2[(cy * W2 + cx).long()]
-
-    taps1 = list(cfg.tap_offsets)
-    pairs = ((pad1[R + i1 : R + i1 + H, R + j1 : R + j1 + W], at2(i2, j2))
-             for (i1, j1), (i2, j2) in zip(taps1, offsets2))
-    gws = [tap_weight(i1, j1, cfg.sigma_spatial) for (i1, j1) in taps1]
-    return bilateral_cost(pairs, pack1[..., :3], at2(0, 0)[..., :3], gws, cfg,
-                          chunk=TAP_CHUNK)
+    inv_lam_ad2, _, inv_sig_r2 = cost_constants(cfg)
+    center2 = _gather(flat2, ty, tx, H2, W2)[..., :3]
+    parts = []
+    for chunk, iy, ix, _, gws in _chunk_tables(
+            tuple(cfg.tap_offsets), None, cfg.sigma_spatial, R, H, W,
+            pack1.device):
+        p1 = pad1[iy, ix][:, None]
+        oy, ox = scaled_tap_offsets(chunk, scale)
+        p2 = _gather(flat2, ty + oy, tx + ox, H2, W2)
+        wgt, c_ad = _weight_and_ad(pack1[..., :3], center2, p1, p2, gws,
+                                   inv_sig_r2, inv_lam_ad2)
+        parts.append((wgt * c_ad, wgt))
+    cost = _chunk_sums(parts)
+    return cost[0] if single else cost
 
 
 def patch_cost_planefitting(
@@ -236,7 +401,7 @@ def patch_cost_planefitting(
 ) -> torch.Tensor:
     """Least gathered cost over the 4 plane hypotheses
     (bao_pmflow_kernel.cu:334-513; ``eppm_tpu/ops/cost.py::
-    patch_cost_planefitting``)."""
+    patch_cost_planefitting``); targets (H, W) or (K, H, W)."""
     cost = None
     for offsets2 in plane_offsets(cfg):
         c = patch_cost_offsets(pack1, pack2, tx, ty, cfg, offsets2)

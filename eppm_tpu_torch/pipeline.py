@@ -1,5 +1,5 @@
 """The EPPM optical-flow pipeline on PyTorch (counterpart of
-``eppm_tpu/pipeline.py``) with the dense match engine.
+``eppm_tpu/pipeline.py``).
 
 Stage order (reference ``compute_flow``,
 bao_flow_patchmatch_multiscale_cuda.cpp:217-315):
@@ -7,7 +7,9 @@ bao_flow_patchmatch_multiscale_cuda.cpp:217-315):
   prepare: Gaussian pre-smooth -> Gaussian pyramid (auto-depth) -> census
     transform and pack per level
   coarsest level: bidirectional dense matching (warm-started from
-    ``init_flow`` when given) -> left-right check -> outlier removal ->
+    ``init_flow`` when given), or with ``match_engine="patchmatch"`` two
+    independent PatchMatch searches, forward and backward, drawing from a
+    ``torch.Generator`` -> left-right check -> outlier removal ->
     occlusion reconstruction (fill-first, or the legacy WMF-then-fill
     order) -> flow
   each finer level: bilinear upsample x2 -> dense refine pass 1 (kernel A;
@@ -43,12 +45,13 @@ from .ops.cuda_wmf import weighted_median_filter_auto
 from .ops.dense import dense_refine_flow, median3_flow
 from .ops.match import match_coarse_bidi
 from .ops.occlusion import coarse_occlusion_reconstruct
+from .ops.patchmatch import TorchSampler, patchmatch
 from .ops.refine import (blf_refine_flow, flow_to_nnf, lr_check, nnf_to_flow,
                           outlier_removal)
 from .ops.resize import bilinear_resize, gaussian_filter, gaussian_pyramid
 from .ops.subpixel import subpixel_refine
 
-__all__ = ["prepare_pyramids", "compute_flow", "EPPMFlow", "check_supported"]
+__all__ = ["prepare_pyramids", "compute_flow", "EPPMFlow"]
 
 
 def _normalize(img: torch.Tensor) -> torch.Tensor:
@@ -76,17 +79,6 @@ def prepare_pyramids(
     return levels, packs
 
 
-def check_supported(cfg: EPPMConfig) -> None:
-    """Raise NotImplementedError for a config that takes a branch the
-    port does not have yet (the PatchMatch engine), naming the ROADMAP
-    item."""
-    if cfg.match_engine != "dense":
-        raise NotImplementedError(
-            f"match_engine={cfg.match_engine!r} is not ported yet: "
-            "ROADMAP.md, Queue 1 item 14 (the PatchMatch engine)"
-        )
-
-
 def _coarse_init(init_flow: torch.Tensor, ch: int, cw: int) -> torch.Tensor:
     """Resize a full-resolution temporal init flow to the coarse level;
     the values scale with the resolution ratio r = ch / h.  The resize's
@@ -105,36 +97,57 @@ def compute_flow(
     cfg: EPPMConfig = DEFAULT_CONFIG,
     fine_level_wmf: bool = False,
     init_flow: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    samplers=None,
 ) -> torch.Tensor:
     """Dense flow frame1 -> frame2 for an (H, W, 3) pair (uint8 or float
     in [0, 1]) -> (H, W, 2) float32.  It runs on the frames' device: CUDA
     frames launch the kernels, CPU frames take their plain versions
     (``EPPMFlow`` moves the frames to its device, the card by default).
-    The dense engine makes no random draws, so no generator is taken.
 
     ``init_flow`` (H, W, 2), on the frames' device, is a temporal warm
-    start (the previous pair's flow when streaming video) for the coarse
-    matcher: forward as given, backward negated (``MatchConfig.
-    warm_skip_global``).  ``fine_level_wmf`` adds one full-image weighted
-    median iteration after each fine level's smoothing."""
-    check_supported(cfg)
+    start (the previous pair's flow when streaming video) for the dense
+    coarse matcher: forward as given, backward negated (``MatchConfig.
+    warm_skip_global``); the PatchMatch engine ignores it, as the JAX
+    package does.  ``fine_level_wmf`` adds one full-image weighted median
+    iteration after each fine level's smoothing.
+
+    The PatchMatch engine (``cfg.match_engine="patchmatch"``) draws from
+    ``generator`` in the place of JAX's key, the forward search first:
+    by default a new generator on the frames' device seeded with
+    ``cfg.seed``, so the result is the same run after run (torch's
+    streams are not JAX's, so the draws differ from ``eppm_tpu``'s).
+    ``samplers``, a (forward, backward) pair of samplers
+    (``ops/patchmatch.py``), replaces the generator; the tests pass ones
+    that make JAX's draws.  The dense engine draws nothing."""
     if img1.device != img2.device:
         raise ValueError(f"frames on {img1.device} and {img2.device}")
     levels1, packs1 = prepare_pyramids(img1, cfg)
     levels2, packs2 = prepare_pyramids(img2, cfg)
     top = len(packs1) - 1
 
-    ci = None
-    if init_flow is not None:
-        if init_flow.device != img1.device:
-            raise ValueError(f"init_flow on {init_flow.device}, frames on "
-                             f"{img1.device}")
-        ci = _coarse_init(init_flow.to(torch.float32),
-                          packs1[top].shape[0], packs1[top].shape[1])
-    (tx1, ty1, c1), (tx2, ty2, c2) = match_coarse_bidi(
-        levels1[top], levels2[top], cfg.cost, cfg.match,
-        packs1[top], packs2[top], init_flow=ci,
-    )
+    if init_flow is not None and init_flow.device != img1.device:
+        raise ValueError(f"init_flow on {init_flow.device}, frames on "
+                         f"{img1.device}")
+    if cfg.match_engine == "dense":
+        ci = None
+        if init_flow is not None:
+            ci = _coarse_init(init_flow.to(torch.float32),
+                              packs1[top].shape[0], packs1[top].shape[1])
+        (tx1, ty1, c1), (tx2, ty2, c2) = match_coarse_bidi(
+            levels1[top], levels2[top], cfg.cost, cfg.match,
+            packs1[top], packs2[top], init_flow=ci,
+        )
+    else:
+        if samplers is None:
+            if generator is None:
+                generator = torch.Generator(img1.device)
+                generator.manual_seed(cfg.seed)
+            samplers = (TorchSampler(generator),) * 2
+        tx1, ty1, c1 = patchmatch(packs1[top], packs2[top], samplers[0],
+                                  cfg.patchmatch, cfg.cost)
+        tx2, ty2, c2 = patchmatch(packs2[top], packs1[top], samplers[1],
+                                  cfg.patchmatch, cfg.cost)
     otx, oty = tx1, ty1  # pre-LR matches: arbitration candidates
     tx1, ty1, c1, tx2, ty2, c2 = lr_check(
         tx1, ty1, c1, tx2, ty2, c2, cfg.lr_thresh
@@ -196,12 +209,13 @@ class EPPMFlow(nn.Module):
     It runs on ``device``, the CUDA device by default: ``set_data`` and
     ``forward`` move the frames there, and the flow comes back there.
     Without a CUDA device the default raises; ``device="cpu"`` runs the
-    kernels' plain versions."""
+    kernels' plain versions.  Under the PatchMatch engine each call draws
+    from the ``generator`` it is given, else from a new one seeded with
+    ``cfg.seed`` (``compute_flow``)."""
 
     def __init__(self, cfg: EPPMConfig = DEFAULT_CONFIG,
                  device: Union[str, torch.device] = "cuda"):
         super().__init__()
-        check_supported(cfg)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("EPPMFlow runs on the CUDA device and there is "
@@ -228,17 +242,20 @@ class EPPMFlow(nn.Module):
         return self
 
     def compute_flow(self, fine_level_wmf: bool = False,
-                     init_flow: Optional[torch.Tensor] = None
-                     ) -> torch.Tensor:
+                     init_flow: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None,
+                     samplers=None) -> torch.Tensor:
         """The flow of the ``set_data`` pair; ``init_flow`` (moved to the
-        model's device) warm-starts the coarse match (``compute_flow``)."""
+        model's device) warm-starts the dense coarse match, ``generator``
+        or ``samplers`` feed the PatchMatch engine (``compute_flow``)."""
         if self._img1 is None:
             raise RuntimeError("set_data() must be called before compute_flow()")
         if init_flow is not None:
             init_flow = init_flow.to(self.device)
         return compute_flow(self._img1, self._img2, self.cfg,
-                            fine_level_wmf, init_flow)
+                            fine_level_wmf, init_flow, generator, samplers)
 
-    def forward(self, img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+    def forward(self, img1: torch.Tensor, img2: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         return compute_flow(img1.to(self.device), img2.to(self.device),
-                            self.cfg)
+                            self.cfg, generator=generator)

@@ -96,18 +96,17 @@ def test_eppmflow_runs_on_the_card_by_default(monkeypatch):
     dict(subpixel_refine=True),
 ])
 def test_settings_off_the_slice_raise(change):
-    """Only the PatchMatch engine is still off the port (ROADMAP item 14):
-    it raises, naming the item; the other settings run."""
+    """Every setting off the default slice runs, the PatchMatch engine
+    included (it raised until it was ported): a finite flow of the
+    frames' shape, the same through ``compute_flow`` and ``EPPMFlow``.
+    Their agreement with the JAX package: tests/test_torch_pm_flow.py,
+    tests/test_torch_warm*.py, _legacy_wmf.py, _subpixel*.py."""
     cfg = dataclasses.replace(DEFAULT_CONFIG, **change)
     img = torch.zeros((32, 48, 3))
-    if cfg.match_engine != "dense":
-        with pytest.raises(NotImplementedError, match="item 14"):
-            compute_flow(img, img, cfg)
-        with pytest.raises(NotImplementedError, match="item 14"):
-            EPPMFlow(cfg, device="cpu")
-        return
     flow = EPPMFlow(cfg, device="cpu")(img, img)
     assert tuple(flow.shape) == (32, 48, 2) and bool(torch.isfinite(flow).all())
+    np.testing.assert_array_equal(flow.numpy(),
+                                  compute_flow(img, img, cfg).numpy())
 
 
 def test_temporal_init_and_fine_wmf_raise():

@@ -2,8 +2,7 @@
 colour conversions, the flow colour coding, warping by a flow, the
 median and guide-image filters, the still-region suppressor, the PNG
 codec — and its entry points on the CPU: the command line's stream and
-``--viz`` modes, ``EPPMFlow.compute_flow(init_flow=...)`` and
-``check_supported``."""
+``--viz`` modes and ``EPPMFlow.compute_flow(init_flow=...)``."""
 
 import json
 import os
@@ -24,7 +23,6 @@ from eppm_tpu_torch import cli, io
 from eppm_tpu_torch.config import DEFAULT_CONFIG as TD
 from eppm_tpu_torch.ops import color, cost, refine, warp
 from eppm_tpu_torch import pipeline as tpipe
-from eppm_tpu_torch.pipeline import check_supported
 from test_torch_pipeline import shifted_pair
 from test_torch_warm import configs, stream_pairs
 
@@ -157,16 +155,6 @@ def test_png_filters_are_undone():
         raw += bytes([ftype]) + ((cur - pred) & 0xFF).astype(np.uint8).tobytes()
         prev = cur
     np.testing.assert_array_equal(io._png_unfilter(raw, h, w, bpp), rows)
-
-
-def test_check_supported_raises_only_for_the_match_engine():
-    import dataclasses
-
-    check_supported(dataclasses.replace(
-        TD, subpixel_refine=True, dense_subpixel_fit=True,
-        refine=dataclasses.replace(TD.refine, wmf_fill_first=False)))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        check_supported(dataclasses.replace(TD, match_engine="patchmatch"))
 
 
 def _frames(tmp_path, ext, n=4, h=48, w=64):
