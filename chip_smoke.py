@@ -12,7 +12,9 @@ final line is not printed):
 3. kernels against their plain PyTorch versions, on the card, at the
    shapes the main paths give them: kernel A identical (max |diff| 0,
    no value differs) in its fronto, multiwarp and plane modes, and its
-   terms pass identical to ``cost_terms``; kernel B identical, the
+   terms pass identical to ``cost_terms``, and in its fronto mode at
+   ``cost_tap_chunk=49`` (1080p, 49 taps in one partial sum); kernel B
+   identical, the
    paired kernel at the default radius 10 and the one-pass kernel at
    radius 6 (the launch counts say which ran); kernel C identical
    targets in its polish, Jacobi and full-image modes, with the share of
@@ -64,17 +66,26 @@ final line is not printed):
    - ``subpixel_refine`` and ``dense_subpixel_fit`` on half-pixel shifts
      at 640x480 and 1080p, the interior EPE beside the integer default's;
    - the PatchMatch engine (``match_engine="patchmatch"``) through
-     ``EPPMFlow`` on its default generator: (3, -2) and (37, 21) at
+     ``EPPMFlow`` on its default key: (3, -2) and (37, 21) at
      640x480, (5, 3) at 1080p, each pair's flow held by ``utils.guard.
      check_flow`` (finite, warp error below 0.6x the zero-flow one), its
      interior EPE, its time by ``utils.timing.DeviceTimer``, a second run
      identical to the first, and its device events under
      ``torch.profiler``, the pair's (at 1080p also the PatchMatch
-     stage's alone); the dense matcher's kernels (the multiwarp form of
-     kernel A, kernel D) launched no time;
+     stage's alone, drawing from the key and from a ``torch.Generator``:
+     the device events the key's draws add); the dense matcher's kernels
+     (the multiwarp form of kernel A, kernel D) launched no time;
    - the command line on that engine: ``--gt`` with a KITTI 16-bit PNG
      ground truth, and ``--eval-dir`` over two 640x480 sequences (the
      scores of each);
+   - the multi-device path (``parallel.compute_flow_sharded``) on meshes
+     of this card repeated: a 1080p pair on a (1, 1, 2) and on a (1, 2,
+     2) mesh (padded to 1088x1920), each within the contract of
+     single-device ``EPPMFlow`` and of each other, ms per pair beside the
+     single device's, kernels A and B launched once per tile where one
+     device launches them once; a (2, 1, 1) batch of two 640x480 pairs;
+     ``cli --mesh 1,1,1``, and a mesh of more cards than there are
+     refused;
 5. agreement: the port on the card against the port on the CPU (plain
    versions) at 192x256, under ``DEFAULT_CONFIG`` and with both plane
    flags, and under ``DEFAULT_CONFIG`` on a pair with black regions,
@@ -86,12 +97,11 @@ final line is not printed):
    ``match_coarse_bidi`` warm-started from such an init, and so does
    ``global_match_bidi`` on the descriptors of frames with black regions
    (``eppm_tpu_torch/testing.py::dark_rows``), where the float64 sums
-   are not exact in every order; on the PatchMatch path, the card and
-   the CPU given the same draws (a sampler on a CPU generator whose draws
-   move to the card): the flow at 192x256 under the same contract, and
-   ``patchmatch``, ``patchmatch_scaled``, ``patchmatch_planefitting`` (4
-   iterations each) and ``line_propagate`` at 48x64 with identical
-   targets.
+   are not exact in every order; on the PatchMatch path under the
+   default key (JAX's threefry draws, integer ops on both devices): the
+   flow at 192x256 identical, and ``patchmatch``, ``patchmatch_scaled``,
+   ``patchmatch_planefitting`` (4 iterations each) and
+   ``line_propagate`` at 48x64 with identical targets.
 
 Each phase logs its seconds.  The line before the last is one JSON object
 with a row per kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -583,6 +593,32 @@ def phase_kernels(dev) -> dict:
             record_terms_error(terms_row[0])
         else:
             record("cost_terms", *terms_row)
+
+    # cost_tap_chunk=49: the pass-1 grid's 49 taps in one partial sum
+    # (the default sums them in chunks of 25); the row keeps the default
+    # chunk's times, this case adds its error
+    h, w, chunk = 1080, 1920, 49
+    (_, p1), (_, p2) = _packs(h, w, 3, -2, SEED, dev)
+    g = torch.full((h, w), 2, dtype=torch.int32, device=dev)
+    warped = warp_pack(p2, g + 1, -g)
+    offsets = center_out_offsets(1)
+    got = cuda_cost.residual_costs_cuda(p1, warped, offsets, cfg.cost, chunk)
+    ref = cuda_cost.residual_costs(p1, warped, offsets, cfg.cost, False,
+                                   chunk)
+    moved = float((got != cuda_cost.residual_costs_cuda(
+        p1, warped, offsets, cfg.cost)).float().mean())
+    err = float((got - ref).abs().max())
+    differ = float((got != ref).float().mean())
+    ms = cuda_ms(lambda: cuda_cost.residual_costs_cuda(
+        p1, warped, offsets, cfg.cost, chunk), 5)
+    log(f"cost   {h}x{w} K={len(offsets)} taps=49 chunk={chunk}: max|diff| "
+        f"{err:.3g} ({differ:.2%} differ)  kernel {ms:.3f} ms; {moved:.2%} of "
+        f"the costs differ from the default chunk of 25's")
+    check(err == 0 and differ == 0, f"kernel A at chunk {chunk}: max|diff| "
+          f"{err}, {differ:.2%} differ")
+    rows["residual_costs"]["max_abs_err"] = max(
+        rows["residual_costs"]["max_abs_err"], err)
+    del p1, p2, warped, got, ref
 
     # the tiny level of a 640x480 match (30x40 descriptors), and the coarse
     # levels of 1080p (auto depth) and of 4K at depth 3 with the global
@@ -1104,7 +1140,7 @@ DENSE_MATCHER = ["residual_costs_multiwarp", "global_argmax"]
 
 def pm_case(model, dev, h, w, dx, dy, seed) -> None:
     """One synthetic pair through the PatchMatch ``model`` on its default
-    generator: a warm-up run, a run timed by ``DeviceTimer`` that must
+    key: a warm-up run, a run timed by ``DeviceTimer`` that must
     be identical to it, ``check_flow`` (finite, at most 1% unknown, warp
     error < 0.6x the zero-flow one), the interior EPE and launches per
     pair; then the device events under ``torch.profiler`` of the pair
@@ -1128,9 +1164,9 @@ def pm_case(model, dev, h, w, dx, dy, seed) -> None:
     epe = interior_epe(flow.cpu().numpy(), dx, dy, 16)
     log(f"patchmatch {w}x{h} shift ({dx},{dy}) [synthetic]: {ms:.1f} ms "
         f"(DeviceTimer)  check_flow: {rep}  interior EPE {epe:.4f}  two "
-        f"runs of the default generator {'identical' if same else 'DIFFER'}"
+        f"runs of the default key {'identical' if same else 'DIFFER'}"
         f"  launches per pair {per_pair}")
-    check(same, "two runs of the default generator differ")
+    check(same, "two runs of the default key differ")
     check(per_pair.get("flow_smoothing_paired", 0) == (3 if h == 480 else 4),
           f"smoothing launches per pair {per_pair}")
     profile_pair(model, dev, h, w, dx, dy, seed)
@@ -1139,14 +1175,18 @@ def pm_case(model, dev, h, w, dx, dy, seed) -> None:
 
 
 def profile_pm_stage(cfg, dev, h, w, dx, dy, seed) -> None:
-    """The PatchMatch stage alone: both searches (forward, then backward,
-    on one generator seeded with ``cfg.seed``) on the coarse level of a
-    synthetic pair, after a warm-up: its time by ``DeviceTimer``, then
+    """The PatchMatch stage alone: both searches (forward, then backward)
+    on the coarse level of a synthetic pair, after a warm-up, drawing
+    from the default key's halves (JAX's threefry draws, ``ops/prng.py``)
+    and then from one ``torch.Generator`` seeded with ``cfg.seed`` (the
+    default before the key): each one's time by ``DeviceTimer``, then
     under ``torch.profiler`` its device events, device busy and the
-    device kernels that take the most time."""
+    device kernels that take the most time.  The difference of the event
+    counts is what the key's draws add."""
     from torch.profiler import ProfilerActivity, profile
 
-    from eppm_tpu_torch.ops.patchmatch import patchmatch
+    from eppm_tpu_torch.ops.patchmatch import ThreefrySampler, patchmatch
+    from eppm_tpu_torch.ops.prng import prng_key, split
     from eppm_tpu_torch.pipeline import prepare_pyramids
     from eppm_tpu_torch.utils import DeviceTimer
 
@@ -1154,27 +1194,42 @@ def profile_pm_stage(cfg, dev, h, w, dx, dy, seed) -> None:
     p1, p2 = (prepare_pyramids(torch.from_numpy(f).to(dev), cfg)[1][-1]
               for f in (f1, f2))
 
-    def run():
-        g = torch.Generator(dev).manual_seed(cfg.seed)
-        patchmatch(p1, p2, g, cfg.patchmatch, cfg.cost)
-        patchmatch(p2, p1, g, cfg.patchmatch, cfg.cost)
+    def key_samplers():
+        return [ThreefrySampler(k) for k in split(prng_key(cfg.seed, dev))]
 
-    run()
-    timer = DeviceTimer(dev).start()
-    run()
-    ms = timer.stop() * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    def generator_samplers():
+        return [torch.Generator(dev).manual_seed(cfg.seed)] * 2
+
+    events = {}
+    for name, samplers in (("the default key", key_samplers),
+                           ("a torch.Generator", generator_samplers)):
+        def run():
+            fwd, bwd = samplers()
+            patchmatch(p1, p2, fwd, cfg.patchmatch, cfg.cost)
+            patchmatch(p2, p1, bwd, cfg.patchmatch, cfg.cost)
+
         run()
-        torch.cuda.synchronize()
-    busy = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    total_us = sum(e.self_device_time_total for e in busy)
-    top = sorted(busy, key=lambda e: -e.self_device_time_total)[:4]
-    log(f"patchmatch stage {w}x{h} (coarse {p1.shape[1]}x{p1.shape[0]}, "
-        f"both directions) [synthetic]: {ms:.1f} ms (DeviceTimer), "
-        f"{sum(e.count for e in busy)} device events, device busy "
-        f"{total_us / 1e3:.3f} ms; most device time: "
-        + "; ".join(f"{e.key[:70]} {e.self_device_time_total / 1e3:.3f} ms "
-                    f"({e.count})" for e in top))
+        timer = DeviceTimer(dev).start()
+        run()
+        ms = timer.stop() * 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        busy = [e for e in prof.key_averages()
+                if e.self_device_time_total > 0]
+        total_us = sum(e.self_device_time_total for e in busy)
+        top = sorted(busy, key=lambda e: -e.self_device_time_total)[:4]
+        events[name] = sum(e.count for e in busy)
+        log(f"patchmatch stage {w}x{h} (coarse {p1.shape[1]}x{p1.shape[0]}, "
+            f"both directions, drawing from {name}) [synthetic]: {ms:.1f} ms "
+            f"(DeviceTimer), {events[name]} device events, device busy "
+            f"{total_us / 1e3:.3f} ms; most device time: "
+            + "; ".join(f"{e.key[:70]} {e.self_device_time_total / 1e3:.3f} "
+                        f"ms ({e.count})" for e in top))
+    log(f"the key's threefry draws: {events['the default key']} device "
+        f"events a pair's PatchMatch stage against "
+        f"{events['a torch.Generator']} with a torch.Generator "
+        f"({events['the default key'] - events['a torch.Generator']:+d})")
 
 
 def pm_cli_case(dev, h=480, w=640, seed=SEED + 50) -> None:
@@ -1223,6 +1278,177 @@ def pm_cli_case(dev, h=480, w=640, seed=SEED + 50) -> None:
               f"eval-dir sequences {sorted(rep['sequences'])}")
         check(all(r["epe"] < 1.0 for r in rep["sequences"].values()),
               "eval-dir EPE")
+
+
+def timed_pair(fn):
+    """A warm-up run of ``fn``, then a timed one: (its output, wall ms,
+    launches of that run by the names of ``counters``' rows)."""
+    fn()
+    torch.cuda.synchronize()
+    before = {name: c.launches for name, c in counters().items()}
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    per = {name: c.launches - before[name] for name, c in counters().items()}
+    return out, ms, per
+
+
+def agreement(a: torch.Tensor, b: torch.Tensor):
+    """(share of pixels within 1e-3, mean |diff|) of two flows."""
+    d = (a.float() - b.float()).abs().max(-1).values
+    return float((d < 1e-3).float().mean()), float(d.mean())
+
+
+def sharded_cases(dev) -> dict:
+    """The multi-device path (``parallel.compute_flow_sharded``) on meshes
+    of this card repeated, under ``DEFAULT_CONFIG``, one path at a time:
+    a 1080p pair on a (1, 1, 2) mesh and on a (1, 2, 2) mesh (which pads
+    it to 1088x1920), each against single-device ``EPPMFlow`` on the
+    frames it computes (padded the same way, the flow cropped) under the
+    contract, with ms per pair beside EPPMFlow's, and launches per pair:
+    kernels A and B once per tile where EPPMFlow launches them once (the
+    coarse level, with kernel C and A's multiwarp form, runs once per
+    distinct device: once); the two meshes' flows against each other,
+    and the padded EPPMFlow's against the unpadded one, logged; a
+    (2, 1, 1) batch of two 640x480 pairs; ``cli --mesh 1,1,1`` on the
+    card, and a mesh that needs more cards than there are refused."""
+    import contextlib
+    import io as _io
+    import math
+    import os
+    import tempfile
+
+    from eppm_tpu_torch import cli
+    from eppm_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from eppm_tpu_torch.io import read_flo, write_ppm
+    from eppm_tpu_torch.parallel import (compute_flow_sharded, make_mesh,
+                                         pad_to_tileable)
+    from eppm_tpu_torch.pipeline import EPPMFlow
+
+    name = torch.cuda.get_device_name(dev)
+    model = EPPMFlow(cfg)
+    default = ["cost_terms", "residual_costs", "residual_costs_multiwarp",
+               "flow_smoothing_paired", "weighted_median_filter"]
+    launches = {}
+    h, w, dx, dy = 1080, 1920, 5, 3
+    f1, f2 = shifted_pair(h, w, dx, dy, SEED + 60)
+    img1, img2 = (torch.from_numpy(f).to(dev) for f in (f1, f2))
+    single = {}   # the padded shape -> EPPMFlow's (flow cropped, ms, launches)
+
+    def one_device(ph, pw):
+        """EPPMFlow on the frames edge-padded to ph x pw, as the sharded
+        path pads them, the flow cropped back."""
+        if (ph, pw) not in single:
+            iy = torch.arange(ph, device=dev).clamp(max=h - 1)
+            ix = torch.arange(pw, device=dev).clamp(max=w - 1)
+            p1, p2 = (f[iy][:, ix] for f in (img1, img2))
+            flow, ms, per = timed_pair(lambda: model(p1, p2))
+            single[(ph, pw)] = (flow[:h, :w], ms, per)
+        return single[(ph, pw)]
+
+    flows = {}
+    fine_passes = 2 * (len(cfg.pyramid.level_dims(h, w)) - 1)
+    for shape in ((1, 1, 2), (1, 2, 2)):
+        mesh = make_mesh(*shape, devices=[dev] * math.prod(shape))
+        tiles = shape[1] * shape[2]
+        ph, pw = pad_to_tileable(h, w, cfg, shape[1], shape[2])
+        ref, ref_ms, ref_per = one_device(ph, pw)
+        path = f"sharded {shape}"
+        out = {}
+        launches[path] = drive(path, default, lambda: out.update(zip(
+            ("flow", "ms", "per"), timed_pair(lambda: compute_flow_sharded(
+                img1[None], img2[None], mesh, cfg)[0]))))
+        flow, per = out["flow"], out["per"]
+        check(tuple(flow.shape) == (h, w, 2), f"{path}: shape {flow.shape}")
+        check(bool(torch.isfinite(flow).all()), f"{path}: non-finite flow")
+        agree, mean = agreement(flow, ref)
+        epe = interior_epe(flow.cpu().numpy(), dx, dy, 16)
+        log(f"{path} {w}x{h} (computed at {pw}x{ph}) shift ({dx},{dy}) "
+            f"[synthetic]: {out['ms']:.1f} ms a pair against {ref_ms:.1f} ms "
+            f"for EPPMFlow on one device ({name}); {agree:.4%} of pixels "
+            f"within 1e-3 of EPPMFlow's at {pw}x{ph}, mean |diff| "
+            f"{mean:.3g}; interior EPE {epe:.4f}; launches per pair {per} "
+            f"(EPPMFlow: {ref_per})")
+        check(agree >= 0.98 and mean < 0.05,
+              f"{path}: {agree:.2%} agree with EPPMFlow, mean {mean}")
+        # the fine levels' launches once a tile, the coarse level's once
+        extra = fine_passes * (tiles - 1)
+        want = {"flow_smoothing_paired":
+                ref_per["flow_smoothing_paired"] * tiles,
+                "residual_costs": ref_per["residual_costs"] + extra,
+                "cost_terms": ref_per["cost_terms"] + extra,
+                "residual_costs_multiwarp": ref_per["residual_costs_multiwarp"],
+                "weighted_median_filter": ref_per["weighted_median_filter"]}
+        for row, n in want.items():
+            check(per[row] == n, f"{path}: {row} {per[row]} launches a pair, "
+                  f"expected {n}")
+        flows[shape] = flow
+    padded = [k for k in single if k != (h, w)]
+    for k in padded:
+        agree, mean = agreement(single[k][0], single[(h, w)][0])
+        log(f"EPPMFlow at {k[1]}x{k[0]} (edge-padded, cropped) against "
+            f"{w}x{h}: {agree:.4%} of pixels within 1e-3, mean |diff| "
+            f"{mean:.3g}")
+    # the (1, 2, 2) mesh computes the padded frames: their agreement is
+    # the padding's, logged beside EPPMFlow's own above
+    agree, mean = agreement(flows[(1, 1, 2)], flows[(1, 2, 2)])
+    log(f"sharded (1, 1, 2) against (1, 2, 2) (padded): {agree:.4%} of "
+        f"pixels within 1e-3, mean |diff| {mean:.3g}")
+    del flows, single
+
+    # a batch of two 640x480 pairs, one a device of a (2, 1, 1) mesh
+    h, w = 480, 640
+    pairs = [shifted_pair(h, w, 3, -2, SEED + 61), shifted_pair(
+        h, w, -6, 4, SEED + 62)]
+    imgs1, imgs2 = (torch.from_numpy(np.stack([p[k] for p in pairs])).to(dev)
+                    for k in (0, 1))
+    mesh = make_mesh(2, 1, 1, devices=[dev] * 2)
+    out = {}
+    launches["sharded (2, 1, 1)"] = drive(
+        "sharded (2, 1, 1)", default, lambda: out.update(zip(
+            ("flow", "ms", "per"), timed_pair(lambda: compute_flow_sharded(
+                imgs1, imgs2, mesh, cfg)))))
+    for b in range(2):
+        agree, mean = agreement(out["flow"][b], model(imgs1[b], imgs2[b]))
+        log(f"sharded (2, 1, 1) pair {b} {w}x{h} [synthetic]: {agree:.4%} of "
+            f"pixels within 1e-3 of EPPMFlow, mean |diff| {mean:.3g}")
+        check(agree >= 0.98 and mean < 0.05, f"batch pair {b} disagrees")
+    log(f"sharded (2, 1, 1), two {w}x{h} pairs: {out['ms']:.1f} ms the batch "
+        f"({name}); launches {out['per']}")
+    check(out["per"]["flow_smoothing_paired"] == 6,
+          f"batch smoothing launches {out['per']}")
+
+    # the command line on the card: --mesh 1,1,1, and a mesh of more cards
+    # than there are refused
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = (os.path.join(tmp, n) for n in ("a.ppm", "b.ppm"))
+        write_ppm(a, pairs[0][0])
+        write_ppm(b, pairs[0][1])
+        flo = os.path.join(tmp, "flow.flo")
+        buf = _io.StringIO()
+
+        def run_cli():
+            with contextlib.redirect_stdout(buf):
+                check(cli.main([a, b, "-o", flo, "--mesh", "1,1,1",
+                                "--time"]) == 0, "cli --mesh 1,1,1")
+
+        launches["sharded CLI"] = drive("sharded CLI", default, run_cli)
+        rep = json.loads(buf.getvalue().strip().splitlines()[-1])
+        epe = interior_epe(read_flo(flo), 3, -2, 16)
+        log(f"cli --mesh 1,1,1 {w}x{h} [synthetic]: {rep}, interior EPE "
+            f"{epe:.4f}")
+        check(rep["device"] == "cuda" and epe < 1.0, f"cli --mesh: {rep}")
+        n = torch.cuda.device_count()
+        try:
+            cli.main([a, b, "--mesh", f"1,1,{n + 1}"])
+            refused = None
+        except SystemExit as e:
+            refused = str(e)
+        log(f"cli --mesh 1,1,{n + 1} with {n} card(s): {refused}")
+        check(refused is not None and f"need {n + 1} devices, have {n}"
+              in refused, f"--mesh 1,1,{n + 1} was not refused: {refused}")
+    return launches
 
 
 def phase_end_to_end(dev) -> dict:
@@ -1338,7 +1564,7 @@ def phase_end_to_end(dev) -> dict:
                 f"{case[3] / 2}): interior EPE {epes[case]:.4f} against the "
                 f"integer default's {base[case]:.4f}")
 
-    log("-- patchmatch: match_engine='patchmatch', the default generator")
+    log("-- patchmatch: match_engine='patchmatch', the default key")
     pm_kernels = ["cost_terms", "residual_costs", "flow_smoothing_paired",
                   "weighted_median_filter"]
     model = EPPMFlow(dataclasses.replace(cfg, **PM_CFG))
@@ -1350,6 +1576,8 @@ def phase_end_to_end(dev) -> dict:
         for name in DENSE_MATCHER:
             check(launches[path][name] == 0,
                   f"{name} launched on the {path} path")
+    log("-- sharded: compute_flow_sharded on meshes of this card")
+    launches.update(sharded_cases(dev))
     return launches
 
 
@@ -1459,36 +1687,33 @@ def phase_agreement(dev) -> None:
 
 
 def pm_agreement(dev) -> None:
-    """The PatchMatch path on the card against the CPU, given the same
-    draws: CUDA and CPU generators make different streams, so both sides
-    draw from a CPU generator of one seed (the card's draws move to the
-    card).  The flow at 192x256 under the contract; the engine's four
-    searches at 48x64 (4 iterations each) with identical targets."""
+    """The PatchMatch path on the card against the CPU under the default
+    key (``prng_key(cfg.seed)``: JAX's threefry draws, made by integer
+    ops, so both devices draw the same): the flow at 192x256 identical;
+    the engine's four searches at 48x64 (4 iterations each, drawing from
+    the key) with identical targets."""
     from eppm_tpu_torch.config import DEFAULT_CONFIG as base
     from eppm_tpu_torch.ops import patchmatch as pm
     from eppm_tpu_torch.ops.cost import patch_cost
+    from eppm_tpu_torch.ops.prng import prng_key
     from eppm_tpu_torch.pipeline import compute_flow
-
-    def gen():
-        return torch.Generator().manual_seed(base.seed)
 
     cfg = dataclasses.replace(base, **PM_CFG)
     h, w = 192, 256
     f1, f2 = shifted_pair(h, w, 3, -2, SEED + 23)
     gpu = compute_flow(torch.from_numpy(f1).to(dev),
-                       torch.from_numpy(f2).to(dev), cfg,
-                       samplers=(pm.TorchSampler(gen()),) * 2).cpu().numpy()
-    cpu = compute_flow(torch.from_numpy(f1), torch.from_numpy(f2), cfg,
-                       generator=gen()).numpy()
-    d = np.abs(gpu - cpu).max(axis=-1)
-    agree = float((d < 1e-3).mean())
-    log(f"{h}x{w} patchmatch: {agree:.4%} of pixels agree within 1e-3, "
-        f"mean |diff| {float(d.mean()):.3g}, max {float(d.max()):.3g}")
-    check(agree >= 0.98, f"patchmatch: only {agree:.2%} of pixels agree")
-    check(float(d.mean()) < 0.05, f"patchmatch: mean |diff| {float(d.mean())}")
+                       torch.from_numpy(f2).to(dev), cfg).cpu()
+    cpu = compute_flow(torch.from_numpy(f1), torch.from_numpy(f2), cfg)
+    agree, mean = agreement(gpu, cpu)
+    same = bool(torch.equal(gpu, cpu))
+    log(f"{h}x{w} patchmatch, the default key: flow "
+        f"{'identical' if same else 'DIFFERS'} on the card and the CPU "
+        f"({agree:.4%} of pixels within 1e-3, mean |diff| {mean:.3g})")
+    check(same, "patchmatch: the default key's flow differs between card "
+          "and CPU")
 
     (_, p1), (_, p2) = _packs(48, 64, -3, 2, SEED + 24, dev)
-    tx, ty = pm.random_init(gen(), 48, 64)
+    tx, ty = pm.random_init(prng_key(base.seed), 48, 64)
     c0 = patch_cost(p1.cpu(), p2.cpu(), tx, ty, cfg.cost)
     pcfg = dataclasses.replace(cfg.patchmatch, num_iters=4)
     runs = {
@@ -1503,10 +1728,10 @@ def pm_agreement(dev) -> None:
     }
     for name, run in runs.items():
         t0 = time.perf_counter()
-        g = run(p1, p2, pm.TorchSampler(gen()))
+        g = run(p1, p2, prng_key(base.seed, dev))
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        c = run(p1.cpu(), p2.cpu(), pm.TorchSampler(gen()))
+        c = run(p1.cpu(), p2.cpu(), prng_key(base.seed))
         t2 = time.perf_counter()
         same = [bool(torch.equal(a.cpu(), b)) for a, b in zip(g, c)]
         log(f"{name} 48x64: outputs {same} identical on the card and the CPU "

@@ -9,6 +9,7 @@ sequences with ground truth (counterpart of ``eppm_tpu/cli.py``):
   python -m eppm_tpu_torch.cli --eval-dir DIR [--pattern F1,F2,GT]
                                 [--border N] [--set k=v] [--json]
   python -m eppm_tpu_torch.cli a.ppm b.ppm --set match_engine=patchmatch
+  python -m eppm_tpu_torch.cli a.ppm b.ppm --mesh 1,2,2 [--device cpu]
 
 Frames are PPM/PGM/PNM or PNG.  The stream computes the flow of every
 consecutive pair of DIR's frames (sorted by name) and writes OUT/<first
@@ -21,7 +22,11 @@ the files of ``--pattern``.  The flow runs on the CUDA device by default
 and raises where there is none; ``--device cpu`` runs the plain PyTorch
 versions of the kernels.  ``--set`` takes dotted config paths, e.g.
 ``--set refine.blf_sigma_spatial=3.0``, and ``--set preset=fast`` the
-overrides of a preset (``PRESETS``), ahead of the others.  The
+overrides of a preset (``PRESETS``), ahead of the others.  ``--mesh
+B,Y,X`` runs each pair through the multi-device path
+(``parallel.compute_flow_sharded``) on a (B, Y, X) mesh of the CUDA
+devices 0..n-1 (it raises where there are fewer), or with ``--device
+cpu`` of the CPU named n times; one pair at a time, so B is 1.  The
 single-pair and stream reports are one JSON line; the ``--eval-dir``
 report is indented unless ``--json``.
 """
@@ -46,6 +51,7 @@ from .io import (IMAGE_EXTS, read_flo, read_image, read_image_batch,
                  read_kitti_flow, write_flo, write_png, write_ppm)
 from .metrics import bad_pixel_rate, flow_error
 from .ops.color import flow_to_color
+from .parallel import compute_flow_sharded, make_mesh
 from .pipeline import compute_flow
 
 __all__ = ["main", "apply_overrides", "PRESETS"]
@@ -127,12 +133,47 @@ def _evaluate(flow: np.ndarray, gt_path: str, border: int) -> dict:
             "bad3": bad_pixel_rate(flow, gt, thresh=3.0)}
 
 
+def flow_fn(cfg: EPPMConfig, mesh=None):
+    """``fn(img1, img2, init_flow=None)``: the flow of one pair on the
+    frames' device, or, with a ``mesh``, through the multi-device path
+    (the flow on the mesh's first device)."""
+    if mesh is None:
+        return lambda a, b, init=None: compute_flow(a, b, cfg,
+                                                    init_flow=init)
+
+    def sharded(a, b, init=None):
+        return compute_flow_sharded(
+            a[None], b[None], mesh, cfg,
+            init_flows=None if init is None else init[None])[0]
+
+    return sharded
+
+
+def mesh_of(spec: str, device: torch.device):
+    """The mesh of ``--mesh B,Y,X`` on ``device``'s kind: the CUDA devices
+    0..n-1, or the CPU n times."""
+    try:
+        b, y, x = (int(v) for v in spec.split(","))
+    except ValueError:
+        raise SystemExit(f"--mesh expects B,Y,X, got {spec!r}")
+    if b != 1:
+        raise SystemExit(f"--mesh {spec}: the command line runs one pair at "
+                         "a time, so B must be 1")
+    devices = None if device.type == "cuda" else [device] * (b * y * x)
+    try:
+        return make_mesh(b, y, x, devices=devices)
+    except ValueError as e:
+        raise SystemExit(f"--mesh {spec}: {e}")
+
+
 def evaluate_dir(eval_dir: str, pattern: str, cfg: EPPMConfig,
-                 device: torch.device, border: int = 0) -> dict:
+                 device: torch.device, border: int = 0, mesh=None) -> dict:
     """The flow of each sequence directory of ``eval_dir`` (sorted) that
     holds the two frames of ``pattern`` ("F1,F2,GT"), scored against its
     ground truth where it has one ({"epe": None} where not) -> {
-    "sequences": {name: report}, "mean_epe": the mean of the EPEs}."""
+    "sequences": {name: report}, "mean_epe": the mean of the EPEs}; on
+    ``mesh`` through the multi-device path."""
+    run = flow_fn(cfg, mesh)
     f1n, f2n, gtn = pattern.split(",")
     results = {}
     for name in sorted(os.listdir(eval_dir)):
@@ -140,8 +181,7 @@ def evaluate_dir(eval_dir: str, pattern: str, cfg: EPPMConfig,
         f1, f2, gt = (os.path.join(d, n) for n in (f1n, f2n, gtn))
         if not (os.path.isfile(f1) and os.path.isfile(f2)):
             continue
-        flow = compute_flow(_load(f1, device), _load(f2, device), cfg)
-        flow = flow.cpu().numpy()
+        flow = run(_load(f1, device), _load(f2, device)).cpu().numpy()
         results[name] = (_evaluate(flow, gt, border) if os.path.isfile(gt)
                          else {"epe": None})
     epes = [r["epe"] for r in results.values() if r["epe"] is not None]
@@ -172,7 +212,7 @@ def q16(flow: torch.Tensor) -> torch.Tensor:
 
 def stream(frames_dir: str, out_dir: Optional[str], cfg: EPPMConfig,
            device: torch.device, temporal: bool = False,
-           exact: bool = False) -> dict:
+           exact: bool = False, mesh=None) -> dict:
     """The flow of every consecutive pair of the frames in ``frames_dir``
     (sorted by name), written as ``out_dir``/<first frame>.flo.  Frames
     decode in chunks of ``STREAM_CHUNK``; at most ``STREAM_WINDOW`` flows
@@ -180,7 +220,8 @@ def stream(frames_dir: str, out_dir: Optional[str], cfg: EPPMConfig,
     ``exact``) and writes it.  ``temporal`` hands each pair's flow, still
     on the device, to the next pair as ``init_flow``.  Returns the report:
     frames, pairs, pairs a second (after a warm-up on the first pair,
-    which builds the kernels) and the device."""
+    which builds the kernels) and the device.  On ``mesh`` each pair
+    runs through the multi-device path."""
     names = sorted(f for f in os.listdir(frames_dir)
                    if f.lower().endswith(IMAGE_EXTS))
     if len(names) < 2:
@@ -190,9 +231,7 @@ def stream(frames_dir: str, out_dir: Optional[str], cfg: EPPMConfig,
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
 
-    def run(a, b, init=None):
-        return compute_flow(a, b, cfg, init_flow=init)
-
+    run = flow_fn(cfg, mesh)
     first = [torch.from_numpy(f).to(device) for f in read_image_batch(paths[:2])]
     warm = run(*first)
     if temporal:
@@ -288,19 +327,23 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="one JSON line for the --eval-dir report too")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="device to run on (default cuda; raises without one)")
+    p.add_argument("--mesh", metavar="B,Y,X",
+                   help="run through the multi-device path on a (batch, y, "
+                        "x) mesh of the device's kind")
     args = p.parse_args(argv)
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run on the CPU")
     device = torch.device(args.device)
     cfg = apply_overrides(DEFAULT_CONFIG, args.set)
+    mesh = mesh_of(args.mesh, device) if args.mesh else None
     if args.frames_dir:
         print(json.dumps(stream(args.frames_dir, args.out_dir, cfg, device,
-                                args.temporal, args.exact_readback)))
+                                args.temporal, args.exact_readback, mesh)))
         return 0
     if args.eval_dir:
         print(json.dumps(evaluate_dir(args.eval_dir, args.pattern, cfg,
-                                      device, args.border),
+                                      device, args.border, mesh),
                          indent=None if args.json else 2))
         return 0
     if not (args.frame1 and args.frame2):
@@ -313,7 +356,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                          f"{tuple(img2.shape)}")
 
     t0 = time.perf_counter()
-    flow = compute_flow(img1, img2, cfg)
+    flow = flow_fn(cfg, mesh)(img1, img2)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0

@@ -283,10 +283,11 @@ def write_kitti_flow(path: str, flow, valid=None) -> None:
 
 
 def read_image(path: str) -> np.ndarray:
-    """A frame as (H, W, 3) RGB from PPM/PGM/PNM or PNG
-    (``eppm_tpu/io/__init__.py::read_image`` without its PIL fallback):
-    gray replicated to three channels, alpha dropped, a 16-bit PNG scaled
-    to uint8."""
+    """A frame as (H, W, 3) RGB from PPM/PGM/PNM or PNG, or as a last
+    resort from anything PIL reads, converted to RGB
+    (``eppm_tpu/io/__init__.py::read_image``): gray replicated to three
+    channels, alpha dropped, a 16-bit PNG scaled to uint8.  PIL is
+    imported only for such a file, and its absence raises ValueError."""
     low = path.lower()
     if low.endswith((".ppm", ".pgm", ".pnm")):
         img = read_ppm(path)
@@ -295,7 +296,13 @@ def read_image(path: str) -> np.ndarray:
         if img.dtype == np.uint16:
             img = (img // 257).astype(np.uint8)
     else:
-        raise ValueError(f"{path}: only {'/'.join(IMAGE_EXTS)} are read")
+        try:
+            from PIL import Image
+        except ImportError as e:
+            raise ValueError(f"{path}: only {'/'.join(IMAGE_EXTS)} are read "
+                             f"without PIL ({e})")
+        with Image.open(path) as im:
+            return np.asarray(im.convert("RGB"))
     if img.ndim == 2:
         img = np.repeat(img[..., None], 3, axis=2)
     elif img.shape[2] == 4:

@@ -44,7 +44,11 @@ __all__ = ["pack_frame", "make_patch_stack", "patch_cost_stack", "tap_weight",
            "scaled_tap_offsets", "patch_cost_planefitting",
            "patch_cost_ad_l2", "quantize_cost", "TAP_CHUNK"]
 
-# Taps per partial sum of the cost (the JAX package's ``cost_tap_chunk``).
+# Taps per partial sum of the cost: the default of ``EPPMConfig.
+# cost_tap_chunk``, which every cost takes as its ``tap_chunk``.  The JAX
+# package pads the tap tables to whole chunks with taps of spatial weight
+# 0; those add exact zeros to the last partial sum, so the port ends the
+# last chunk early instead.
 TAP_CHUNK = 25
 
 # Plane-fitting affine hypothesis coefficients (u_x, u_y, v_x, v_y)
@@ -216,8 +220,8 @@ def _column(vals, dtype, device) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=64)
 def _chunk_tables(taps1, taps2, sigma_spatial: float, base: int, h: int,
-                  w: int, device):
-    """Per chunk of ``TAP_CHUNK`` taps, on ``device``: the frame-1 row and
+                  w: int, device, chunk: int = TAP_CHUNK):
+    """Per chunk of ``chunk`` taps, on ``device``: the frame-1 row and
     column indices into a pack padded by ``base`` ((T, h, 1), (T, 1, w)),
     the frame-2 offsets (T, 1, 1, 1) int32 (None for ``taps2=None``) and
     the spatial weights (T, 1, 1, 1) float32.  Made once per set, so a
@@ -227,20 +231,20 @@ def _chunk_tables(taps1, taps2, sigma_spatial: float, base: int, h: int,
         return _column(tuple(vals), dtype, device)
 
     out = []
-    for c0 in range(0, len(taps1), TAP_CHUNK):
-        chunk = taps1[c0 : c0 + TAP_CHUNK]
-        iy = col([base + i for i, _ in chunk], torch.int64)[:, :, 0]
-        ix = col([base + j for _, j in chunk], torch.int64)[:, 0]
+    for c0 in range(0, len(taps1), chunk):
+        part = taps1[c0 : c0 + chunk]
+        iy = col([base + i for i, _ in part], torch.int64)[:, :, 0]
+        ix = col([base + j for _, j in part], torch.int64)[:, 0]
         iy = iy + torch.arange(h, device=device)[:, None]
         ix = ix + torch.arange(w, device=device)
         off2 = None
         if taps2 is not None:
-            chunk2 = taps2[c0 : c0 + TAP_CHUNK]
-            off2 = (col([i for i, _ in chunk2], torch.int32),
-                    col([j for _, j in chunk2], torch.int32))
-        gws = col([tap_weight(i, j, sigma_spatial) for i, j in chunk],
+            part2 = taps2[c0 : c0 + chunk]
+            off2 = (col([i for i, _ in part2], torch.int32),
+                    col([j for _, j in part2], torch.int32))
+        gws = col([tap_weight(i, j, sigma_spatial) for i, j in part],
                   torch.float32)
-        out.append((chunk, iy, ix, off2, gws))
+        out.append((part, iy, ix, off2, gws))
     return out
 
 
@@ -294,6 +298,7 @@ def patch_cost_offsets(
     cfg: CostConfig,
     offsets2: Sequence[Tuple[int, int]],
     pack1_halo: int = 0,
+    tap_chunk: int = TAP_CHUNK,
 ) -> torch.Tensor:
     """Gathered cost at absolute targets (tx, ty), int32 (H, W) or K
     candidate fields (K, H, W), with frame-2 tap offsets ``offsets2``
@@ -302,7 +307,7 @@ def patch_cost_offsets(
     (``eppm_tpu/ops/cost.py::_patch_cost_offsets``).  ``pack1`` may carry
     ``pack1_halo`` rows and columns of context on each side (a tile).
 
-    Each chunk of ``TAP_CHUNK`` taps is one pass over (T, K, H, W)
+    Each chunk of ``tap_chunk`` taps is one pass over (T, K, H, W)
     tensors: one gather of the frame-2 taps, then the range weights and
     the AD + census terms of all its taps at once (the census term looked
     up in ``census_lut``).  Only the running sums stay a loop, in table
@@ -323,7 +328,7 @@ def patch_cost_offsets(
     parts = []
     for _, iy, ix, (dy2, dx2), gws in _chunk_tables(
             tuple(cfg.tap_offsets), tuple(offsets2), cfg.sigma_spatial, base,
-            H, W, pack1.device):
+            H, W, pack1.device, tap_chunk):
         p1 = pad1[iy, ix][:, None]
         p2 = _gather(flat2, ty + dy2, tx + dx2, H2, W2)
         wgt, c_ad = _weight_and_ad(center1, center2, p1, p2, gws,
@@ -335,19 +340,22 @@ def patch_cost_offsets(
 
 
 def patch_cost(pack1, pack2, tx, ty, cfg: CostConfig = CostConfig(),
-               pack1_halo: int = 0) -> torch.Tensor:
+               pack1_halo: int = 0, tap_chunk: int = TAP_CHUNK
+               ) -> torch.Tensor:
     """Fronto-parallel gathered AD + census cost (bao_pmflow_kernel.cu:
     255-301; ``eppm_tpu/ops/cost.py::patch_cost``): (H, W) targets ->
     (H, W) float32, unquantized."""
     return patch_cost_offsets(pack1, pack2, tx, ty, cfg, cfg.tap_offsets,
-                              pack1_halo)
+                              pack1_halo, tap_chunk)
 
 
 def patch_cost_candidates(pack1, pack2, txs, tys,
-                          cfg: CostConfig = CostConfig()) -> torch.Tensor:
+                          cfg: CostConfig = CostConfig(),
+                          tap_chunk: int = TAP_CHUNK) -> torch.Tensor:
     """The fronto cost of K candidate fields (K, H, W) -> (K, H, W), all K
     in one pass (``eppm_tpu/ops/cost.py::patch_cost_candidates``)."""
-    return patch_cost_offsets(pack1, pack2, txs, tys, cfg, cfg.tap_offsets)
+    return patch_cost_offsets(pack1, pack2, txs, tys, cfg, cfg.tap_offsets,
+                              tap_chunk=tap_chunk)
 
 
 def scaled_tap_offsets(taps, scale: torch.Tensor):
@@ -363,13 +371,14 @@ def scaled_tap_offsets(taps, scale: torch.Tensor):
 
 
 def patch_cost_scaled(pack1, pack2, tx, ty, scale,
-                      cfg: CostConfig = CostConfig()) -> torch.Tensor:
+                      cfg: CostConfig = CostConfig(),
+                      tap_chunk: int = TAP_CHUNK) -> torch.Tensor:
     """Scaled-patch bilateral AD cost (_d_compute_patch_dist_scaled,
     bao_pmflow_kernel.cu:588-634; ``eppm_tpu/ops/cost.py::
     patch_cost_scaled``): frame-2 taps at clamp(t + floor(d * scale)) with
     a per-pixel float32 ``scale``; no census term (the reference
     comments it out).  Targets and scale (H, W) or (K, H, W); chunks of
-    ``TAP_CHUNK`` taps as in ``patch_cost_offsets``."""
+    ``tap_chunk`` taps as in ``patch_cost_offsets``."""
     (tx, ty, scale), single = _as_fields(tx, ty, scale)
     H, W = tx.shape[-2:]
     H2, W2 = pack2.shape[0], pack2.shape[1]
@@ -381,7 +390,7 @@ def patch_cost_scaled(pack1, pack2, tx, ty, scale,
     parts = []
     for chunk, iy, ix, _, gws in _chunk_tables(
             tuple(cfg.tap_offsets), None, cfg.sigma_spatial, R, H, W,
-            pack1.device):
+            pack1.device, tap_chunk):
         p1 = pad1[iy, ix][:, None]
         oy, ox = scaled_tap_offsets(chunk, scale)
         p2 = _gather(flat2, ty + oy, tx + ox, H2, W2)
@@ -398,13 +407,18 @@ def patch_cost_planefitting(
     tx: torch.Tensor,
     ty: torch.Tensor,
     cfg: CostConfig,
+    tap_chunk: int = TAP_CHUNK,
+    pack1_halo: int = 0,
 ) -> torch.Tensor:
     """Least gathered cost over the 4 plane hypotheses
     (bao_pmflow_kernel.cu:334-513; ``eppm_tpu/ops/cost.py::
-    patch_cost_planefitting``); targets (H, W) or (K, H, W)."""
+    patch_cost_planefitting``); targets (H, W) or (K, H, W), ``pack1``
+    with ``pack1_halo`` rows and columns of context as in
+    ``patch_cost_offsets``."""
     cost = None
     for offsets2 in plane_offsets(cfg):
-        c = patch_cost_offsets(pack1, pack2, tx, ty, cfg, offsets2)
+        c = patch_cost_offsets(pack1, pack2, tx, ty, cfg, offsets2,
+                               pack1_halo, tap_chunk)
         cost = c if cost is None else torch.minimum(cost, c)
     return cost
 

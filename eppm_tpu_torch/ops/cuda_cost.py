@@ -211,10 +211,12 @@ def cost_terms_cuda(pack1: torch.Tensor, frames: torch.Tensor, cands,
 
 
 def cost_sums_cuda(kernel: CudaKernel, pack1, frames, terms, cands,
-                   cfg: CostConfig, tables) -> torch.Tensor:
+                   cfg: CostConfig, tables, tap_chunk: int = TAP_CHUNK
+                   ) -> torch.Tensor:
     """Kernel A's second pass, counted on ``kernel``: the weighted sums
-    over the terms of ``cost_terms_cuda`` (same arguments) -> (K, H, W),
-    the least over the tables."""
+    over the terms of ``cost_terms_cuda`` (same arguments), in partial
+    sums of ``tap_chunk`` taps -> (K, H, W), the least over the
+    tables."""
     ct = _checked_tables(pack1, frames, cands, cfg, tables)
     require_cuda(pack1, terms)
     h, w = pack1.shape[0], pack1.shape[1]
@@ -228,16 +230,19 @@ def cost_sums_cuda(kernel: CudaKernel, pack1, frames, terms, cands,
             pack1.data_ptr(), frames.data_ptr(), terms.data_ptr(),
             ct.sums.data_ptr(), out.data_ptr(), ct.cands.ctypes.data,
             ct.taps.ctypes.data, ct.gws.ctypes.data, len(cands), len(ct.taps),
-            len(ct.plan.taps2), TAP_CHUNK, reach, h, w,
+            len(ct.plan.taps2), tap_chunk, reach, h, w,
             cost_constants(cfg)[2], torch.cuda.current_stream().cuda_stream,
         )
     return out
 
 
-def _launch(kernel, pack1, frames, cands, cfg: CostConfig,
-            tables) -> torch.Tensor:
+def _launch(kernel, pack1, frames, cands, cfg: CostConfig, tables,
+            tap_chunk: int) -> torch.Tensor:
+    if tap_chunk < 1:
+        raise ValueError(f"kernel A takes a tap chunk >= 1, got {tap_chunk}")
     terms = cost_terms_cuda(pack1, frames, cands, cfg, tables)
-    return cost_sums_cuda(kernel, pack1, frames, terms, cands, cfg, tables)
+    return cost_sums_cuda(kernel, pack1, frames, terms, cands, cfg, tables,
+                          tap_chunk)
 
 
 def residual_costs_cuda(
@@ -245,12 +250,14 @@ def residual_costs_cuda(
     warped2: torch.Tensor,
     cand_offsets: Sequence[Tuple[int, int]],
     cfg: CostConfig,
+    tap_chunk: int = TAP_CHUNK,
 ) -> torch.Tensor:
     """Kernel A, single-frame mode: same contract as ``residual_costs``."""
     require_cuda(pack1, warped2)
     cands = [(cy, cx, 0) for (cy, cx) in cand_offsets]
     check_cost_args(pack1, warped2, 1, cands, cfg)
-    return _launch(SINGLE, pack1, warped2, cands, cfg, cost_tables(cfg, False))
+    return _launch(SINGLE, pack1, warped2, cands, cfg, cost_tables(cfg, False),
+                   tap_chunk)
 
 
 def residual_costs_planes_cuda(
@@ -258,6 +265,7 @@ def residual_costs_planes_cuda(
     warped2: torch.Tensor,
     cand_offsets: Sequence[Tuple[int, int]],
     cfg: CostConfig,
+    tap_chunk: int = TAP_CHUNK,
 ) -> torch.Tensor:
     """Kernel A, plane mode: same contract as ``residual_costs(...,
     use_planes=True)``."""
@@ -265,11 +273,12 @@ def residual_costs_planes_cuda(
     cands = [(cy, cx, 0) for (cy, cx) in cand_offsets]
     tables = cost_tables(cfg, True)
     check_cost_args(pack1, warped2, 1, cands, cfg, tables)
-    return _launch(PLANES, pack1, warped2, cands, cfg, tables)
+    return _launch(PLANES, pack1, warped2, cands, cfg, tables, tap_chunk)
 
 
 def residual_costs_multiwarp_cuda(
-    pack1: torch.Tensor, warped_stack: torch.Tensor, cfg: CostConfig
+    pack1: torch.Tensor, warped_stack: torch.Tensor, cfg: CostConfig,
+    tap_chunk: int = TAP_CHUNK,
 ) -> torch.Tensor:
     """Kernel A, multiwarp mode: same contract as
     ``residual_costs_multiwarp``."""
@@ -280,26 +289,31 @@ def residual_costs_multiwarp_cuda(
     cands = [(0, 0, i) for i in range(k)]
     check_cost_args(pack1, warped_stack, k, cands, cfg)
     return _launch(MULTIWARP, pack1, warped_stack, cands, cfg,
-                   cost_tables(cfg, False))
+                   cost_tables(cfg, False), tap_chunk)
 
 
 def residual_costs_auto(pack1, warped2, cand_offsets, cfg: CostConfig,
-                        use_planes: bool = False):
+                        use_planes: bool = False,
+                        tap_chunk: int = TAP_CHUNK):
     """Kernel A (plane mode with ``use_planes``) for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors; taps sum in partial sums of
+    ``tap_chunk``."""
     if pack1.is_cuda:
         kernel = residual_costs_planes_cuda if use_planes else residual_costs_cuda
-        return kernel(pack1, warped2, cand_offsets, cfg)
+        return kernel(pack1, warped2, cand_offsets, cfg, tap_chunk)
     if pack1.device.type == "cpu":
-        return residual_costs(pack1, warped2, cand_offsets, cfg, use_planes)
+        return residual_costs(pack1, warped2, cand_offsets, cfg, use_planes,
+                              tap_chunk)
     raise ValueError(f"unsupported device {pack1.device}")
 
 
-def residual_costs_multiwarp_auto(pack1, warped_stack, cfg: CostConfig):
+def residual_costs_multiwarp_auto(pack1, warped_stack, cfg: CostConfig,
+                                  tap_chunk: int = TAP_CHUNK):
     """Kernel A (multiwarp) for CUDA tensors, the plain version for CPU
     tensors."""
     if pack1.is_cuda:
-        return residual_costs_multiwarp_cuda(pack1, warped_stack, cfg)
+        return residual_costs_multiwarp_cuda(pack1, warped_stack, cfg,
+                                             tap_chunk)
     if pack1.device.type == "cpu":
-        return residual_costs_multiwarp(pack1, warped_stack, cfg)
+        return residual_costs_multiwarp(pack1, warped_stack, cfg, tap_chunk)
     raise ValueError(f"unsupported device {pack1.device}")

@@ -76,16 +76,21 @@ def median3_flow(flow: torch.Tensor) -> torch.Tensor:
 
 
 def warp_pack(
-    pack2: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor, gather_dtype=None
+    pack2: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor, gather_dtype=None,
+    origin: Tuple[int, int] = (0, 0),
 ) -> torch.Tensor:
     """J(p) = pack2 at (clamp(y + gy(p)), clamp(x + gx(p))): one flat
     gather of all 4 channels.  ``gather_dtype`` (bfloat16) rounds the
-    gathered values through that dtype (``EPPMConfig.dense_warp_bf16``)."""
+    gathered values through that dtype (``EPPMConfig.dense_warp_bf16``).
+    ``origin`` is the global position of (gx, gy)'s top-left pixel, for
+    a tile with a halo against the whole frame 2: the position clamps
+    come first, so a halo pixel beyond the frame's border warps as the
+    edge-padded warp of the whole frame does."""
     h2, w2 = pack2.shape[0], pack2.shape[1]
     h, w = gx.shape
     ys, xs = grid(h, w, gx.device)
-    cy = (ys.clamp(0, h2 - 1) + gy).clamp(0, h2 - 1)
-    cx = (xs.clamp(0, w2 - 1) + gx).clamp(0, w2 - 1)
+    cy = ((ys + origin[0]).clamp(0, h2 - 1) + gy).clamp(0, h2 - 1)
+    cx = ((xs + origin[1]).clamp(0, w2 - 1) + gx).clamp(0, w2 - 1)
     if gather_dtype is not None:
         pack2 = pack2.to(gather_dtype)
     flat = pack2.reshape(h2 * w2, pack2.shape[2])
@@ -99,13 +104,15 @@ def _cost_from_stack(
     m: int,
     cfg: CostConfig,
     taps2: Sequence[Tuple[int, int]],
+    tap_chunk: int = TAP_CHUNK,
 ) -> torch.Tensor:
     """Shared plain cost: ``frames`` is (K, H+2m, W+2m, 4) — candidate k's
     frame-2 region, already offset by its candidate and edge-padded by
     ``m`` >= every |tap| — against pack1 (H, W, 4) -> (K, H, W) on the
     2^-17 grid.  Frame-1 taps follow ``cfg.tap_offsets``, frame-2 taps the
     table ``taps2`` (the same grid, or a plane hypothesis's); the frame-2
-    range-weight centre stays the candidate's own pixel."""
+    range-weight centre stays the candidate's own pixel.  Taps sum in
+    partial sums of ``tap_chunk``."""
     h, w = pack1.shape[0], pack1.shape[1]
     taps1 = list(cfg.tap_offsets)
     R = _reach(taps1)
@@ -116,7 +123,7 @@ def _cost_from_stack(
     gws = [tap_weight(dy, dx, cfg.sigma_spatial) for (dy, dx) in taps1]
     cost = bilateral_cost(pairs, pack1[..., :3],
                           frames[:, m : m + h, m : m + w, :3], gws, cfg,
-                          chunk=TAP_CHUNK)
+                          chunk=tap_chunk)
     return quantize_cost(cost)
 
 
@@ -136,6 +143,7 @@ def residual_costs(
     cand_offsets: Sequence[Tuple[int, int]],
     cfg: CostConfig,
     use_planes: bool = False,
+    tap_chunk: int = TAP_CHUNK,
 ) -> torch.Tensor:
     """Cost of each residual candidate, densely: candidate c at pixel p
     compares pack1(p+d) with warped2(clamp(p+c+d2)) over the tap grid,
@@ -158,20 +166,22 @@ def residual_costs(
     ])
     cost = None
     for table in tables:
-        c = _cost_from_stack(pack1, frames, m, cfg, table)
+        c = _cost_from_stack(pack1, frames, m, cfg, table, tap_chunk)
         cost = c if cost is None else torch.minimum(cost, c)
     return cost
 
 
 def residual_costs_multiwarp(
-    pack1: torch.Tensor, warped_stack: torch.Tensor, cfg: CostConfig
+    pack1: torch.Tensor, warped_stack: torch.Tensor, cfg: CostConfig,
+    tap_chunk: int = TAP_CHUNK,
 ) -> torch.Tensor:
     """Cost at candidate (0, 0) of K separately warped frames
     (K, H, W, 4) -> (K, H, W): the plain version of kernel A's multiwarp
     mode (``eppm_tpu/ops/pallas_cost.py::residual_costs_multiwarp_pallas``)."""
     m = _reach(cfg.tap_offsets)
     frames = torch.stack([pad_edge(wk, m, m) for wk in warped_stack])
-    return _cost_from_stack(pack1, frames, m, cfg, cfg.tap_offsets)
+    return _cost_from_stack(pack1, frames, m, cfg, cfg.tap_offsets,
+                            tap_chunk)
 
 
 def cost_terms(
@@ -219,6 +229,8 @@ def dense_refine_flow(
     use_planes: bool = False,
     subpixel_fit: bool = False,
     subpixel_min_curv: float = 0.0,
+    tap_chunk: int = TAP_CHUNK,
+    origin: Tuple[int, int] = (0, 0),
 ) -> torch.Tensor:
     """Search the candidates around trunc(flow) with the residual cost on
     the once-warped frame 2 (fronto-parallel, or the least over the 4
@@ -229,21 +241,28 @@ def dense_refine_flow(
     ``subpixel_fit``: where the centre candidate wins and its four axis
     neighbours are in frame 2, a 1-D parabola through the three costs of
     each axis moves the flow by at most half a pixel, where the axis
-    curvature exceeds ``max(subpixel_min_curv, 1e-8)``."""
+    curvature exceeds ``max(subpixel_min_curv, 1e-8)``.
+
+    ``origin``: ``flow`` and ``pack1`` are a tile (with its halo) whose
+    top-left pixel sits at that global position in ``pack2``'s frame;
+    the warp and the in-frame test of a candidate take global
+    coordinates, so the tile's interior, away from the halo by the
+    candidates' and taps' reach, equals the whole frame's call."""
     from .cuda_cost import residual_costs_auto
 
     h, w = flow.shape[:2]
     h2, w2 = pack2.shape[0], pack2.shape[1]
     ys, xs = grid(h, w, flow.device)
+    ys, xs = ys + origin[0], xs + origin[1]
     u, v = flow[..., 0], flow[..., 1]
     unknown = (u > UNKNOWN_FLOW_THRESH) | (v > UNKNOWN_FLOW_THRESH)
     gx = trunc_i32(torch.where(unknown, 0.0, u))
     gy = trunc_i32(torch.where(unknown, 0.0, v))
-    warped2 = warp_pack(pack2, gx, gy, gather_dtype)
+    warped2 = warp_pack(pack2, gx, gy, gather_dtype, origin)
 
     cand_offsets = center_out_offsets(search_radius, cand_shape)
     costs = residual_costs_auto(pack1, warped2, cand_offsets, cfg,
-                                use_planes=use_planes)
+                                use_planes=use_planes, tap_chunk=tap_chunk)
     best_dy, best_dx, _ = argmin_candidates(
         costs, cand_offsets, ys + gy, xs + gx, h2, w2, init=999999.0
     )

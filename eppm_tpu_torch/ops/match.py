@@ -24,7 +24,8 @@ import torch
 from ..config import FLT_MAX, CostConfig, MatchConfig
 from ._util import grid, shift2d, trunc_i32
 from .census import census_transform
-from .cost import make_patch_stack, pack_frame, patch_cost_stack, quantize_cost
+from .cost import (TAP_CHUNK, make_patch_stack, pack_frame, patch_cost_stack,
+                   quantize_cost)
 from .cuda_cost import residual_costs_auto, residual_costs_multiwarp_auto
 from .dense import argmin_candidates, center_out_offsets, median3, warp_pack
 from .resize import bilinear_resize, gaussian_filter
@@ -177,14 +178,17 @@ def _as_flow(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
     return torch.stack([gx.to(torch.float32), gy.to(torch.float32)], dim=-1)
 
 
-def rescore(pack1, pack2, gy, gx, cost_cfg: CostConfig) -> torch.Tensor:
+def rescore(pack1, pack2, gy, gx, cost_cfg: CostConfig,
+            tap_chunk: int = TAP_CHUNK) -> torch.Tensor:
     """True cost of the integer offset field (gy, gx): one warp + one
     dense evaluation at candidate (0, 0)."""
     warped = warp_pack(pack2, gx, gy)
-    return residual_costs_auto(pack1, warped, [(0, 0)], cost_cfg)[0]
+    return residual_costs_auto(pack1, warped, [(0, 0)], cost_cfg,
+                               tap_chunk=tap_chunk)[0]
 
 
-def rescore_multi(pack1, pack2, gys, gxs, cost_cfg: CostConfig):
+def rescore_multi(pack1, pack2, gys, gxs, cost_cfg: CostConfig,
+                  tap_chunk: int = TAP_CHUNK):
     """True cost of K integer offset fields (K, H, W) -> (K, H, W): the K
     warps are one gather, the costs one kernel-A launch (multiwarp)."""
     k, h, w = gys.shape
@@ -196,10 +200,11 @@ def rescore_multi(pack1, pack2, gys, gxs, cost_cfg: CostConfig):
     warped = flat[(cy * w2 + cx).reshape(-1).long()].reshape(
         k, h, w, pack2.shape[2]
     )
-    return residual_costs_multiwarp_auto(pack1, warped, cost_cfg)
+    return residual_costs_multiwarp_auto(pack1, warped, cost_cfg, tap_chunk)
 
 
-def propagate_dense(pack1, pack2, flow, cost, steps, cost_cfg: CostConfig):
+def propagate_dense(pack1, pack2, flow, cost, steps, cost_cfg: CostConfig,
+                    tap_chunk: int = TAP_CHUNK):
     """Dense jump-flood propagation: each round tries the 4 axial
     neighbors' offsets at the step distance plus the 3x3 offset median,
     rescored with the true cost and kept on strict improvement."""
@@ -213,7 +218,7 @@ def propagate_dense(pack1, pack2, flow, cost, steps, cost_cfg: CostConfig):
                           + [median3(gx)])
         gys = torch.stack([shift2d(gy, dy, dx) for dy, dx in shifts]
                           + [median3(gy)])
-        costs = rescore_multi(pack1, pack2, gys, gxs, cost_cfg)
+        costs = rescore_multi(pack1, pack2, gys, gxs, cost_cfg, tap_chunk)
         inb = (
             (xs[None] + gxs >= 0) & (xs[None] + gxs < w2)
             & (ys[None] + gys >= 0) & (ys[None] + gys < h2)
@@ -227,7 +232,8 @@ def propagate_dense(pack1, pack2, flow, cost, steps, cost_cfg: CostConfig):
     return _as_flow(gx, gy), cost
 
 
-def descend_level(pack1, pack2, flow, radius: int, cost_cfg: CostConfig):
+def descend_level(pack1, pack2, flow, radius: int, cost_cfg: CostConfig,
+                  tap_chunk: int = TAP_CHUNK):
     """One dense warp + (2r+1)^2 residual argmin sweep; returns the
     updated integer flow and its cost."""
     h, w = pack1.shape[0], pack1.shape[1]
@@ -236,7 +242,8 @@ def descend_level(pack1, pack2, flow, radius: int, cost_cfg: CostConfig):
     ys, xs = grid(h, w, flow.device)
     warped = warp_pack(pack2, gx, gy)
     cands = center_out_offsets(radius)
-    costs = residual_costs_auto(pack1, warped, cands, cost_cfg)
+    costs = residual_costs_auto(pack1, warped, cands, cost_cfg,
+                                tap_chunk=tap_chunk)
     best_dy, best_dx, best_cost = argmin_candidates(
         costs, cands, ys + gy, xs + gx, h2, w2
     )
@@ -282,7 +289,7 @@ def _make_mini_cost(cost_cfg: CostConfig, match_cfg: MatchConfig) -> CostConfig:
 
 
 def _descend_chain(packs_a, packs_b, tiny_targets, match_cfg, cost_cfg,
-                   mini_cost):
+                   mini_cost, tap_chunk: int = TAP_CHUNK):
     """Tiny-level global targets -> descend the mini-pyramid with dense
     residual sweeps -> (flow, cost) at the coarse level."""
     tiny_a, tiny_b = packs_a[-1], packs_b[-1]
@@ -290,23 +297,25 @@ def _descend_chain(packs_a, packs_b, tiny_targets, match_cfg, cost_cfg,
     ys, xs = grid(tiny_a.shape[0], tiny_a.shape[1], tiny_a.device)
     flow = _as_flow(t_x - xs, t_y - ys)
     flow, cost = descend_level(
-        tiny_a, tiny_b, flow, match_cfg.descent_radius, mini_cost
+        tiny_a, tiny_b, flow, match_cfg.descent_radius, mini_cost, tap_chunk
     )
     for lvl in range(len(packs_a) - 2, -1, -1):
         oh, ow = packs_a[lvl].shape[0], packs_a[lvl].shape[1]
         flow = bilinear_resize(flow, oh, ow, 2.0) * 2.0
         cc = cost_cfg if lvl == 0 else mini_cost
         flow, cost = descend_level(
-            packs_a[lvl], packs_b[lvl], flow, match_cfg.descent_radius, cc
+            packs_a[lvl], packs_b[lvl], flow, match_cfg.descent_radius, cc,
+            tap_chunk
         )
     return flow, cost
 
 
-def _merge_proposal(pack_a, pack_b, flow, cost, pgy, pgx, cost_cfg):
+def _merge_proposal(pack_a, pack_b, flow, cost, pgy, pgx, cost_cfg,
+                    tap_chunk: int = TAP_CHUNK):
     """Merge an integer offset-field proposal by true-cost argmin
     (out-of-image never wins)."""
     h, w = flow.shape[0], flow.shape[1]
-    prop_cost = rescore(pack_a, pack_b, pgy, pgx, cost_cfg)
+    prop_cost = rescore(pack_a, pack_b, pgy, pgx, cost_cfg, tap_chunk)
     ys, xs = grid(h, w, flow.device)
     inb = (
         (xs + pgx >= 0) & (xs + pgx < pack_b.shape[1])
@@ -333,7 +342,7 @@ def _coarse_targets_from_global(p_y, p_x, s: int, h: int, w: int):
 
 
 def _start_direction(packs_a, packs_b, tiny_targets, match_cfg, cost_cfg,
-                     mini_cost, init_flow=None):
+                     mini_cost, init_flow=None, tap_chunk: int = TAP_CHUNK):
     """(flow, cost) of one direction before the coarse proposals.
 
     Without a warm start: the descent chain from the tiny-level global
@@ -345,31 +354,33 @@ def _start_direction(packs_a, packs_b, tiny_targets, match_cfg, cost_cfg,
     pack_a, pack_b = packs_a[0], packs_b[0]
     if init_flow is not None and match_cfg.warm_skip_global:
         return descend_level(pack_a, pack_b, init_flow,
-                             match_cfg.descent_radius, cost_cfg)
+                             match_cfg.descent_radius, cost_cfg, tap_chunk)
     if tiny_targets is not None:
         flow, cost = _descend_chain(packs_a, packs_b, tiny_targets,
-                                    match_cfg, cost_cfg, mini_cost)
+                                    match_cfg, cost_cfg, mini_cost, tap_chunk)
     else:
         z = torch.zeros(pack_a.shape[:2], dtype=torch.int32,
                         device=pack_a.device)
-        flow, cost = _as_flow(z, z), rescore(pack_a, pack_b, z, z, cost_cfg)
+        flow, cost = _as_flow(z, z), rescore(pack_a, pack_b, z, z, cost_cfg,
+                                             tap_chunk)
     if init_flow is not None:
         igy, igx = _int_flow(init_flow)
         flow, cost = _merge_proposal(pack_a, pack_b, flow, cost, igy, igx,
-                                     cost_cfg)
+                                     cost_cfg, tap_chunk)
     return flow, cost
 
 
 def _finish_direction(pack_a, pack_b, flow, cost, proposal, s: int,
-                      match_cfg, cost_cfg):
+                      match_cfg, cost_cfg, tap_chunk: int = TAP_CHUNK):
     """Merge the coarse global proposal (targets on a stride-s grid), if
     there is one, then polish (``_polish_direction``)."""
     if proposal is not None:
         h, w = flow.shape[0], flow.shape[1]
         pgy, pgx = _coarse_targets_from_global(*proposal, s, h, w)
         flow, cost = _merge_proposal(pack_a, pack_b, flow, cost, pgy, pgx,
-                                     cost_cfg)
-    return _polish_direction(pack_a, pack_b, flow, cost, match_cfg, cost_cfg)
+                                     cost_cfg, tap_chunk)
+    return _polish_direction(pack_a, pack_b, flow, cost, match_cfg, cost_cfg,
+                             tap_chunk)
 
 
 def match_coarse(
@@ -380,13 +391,15 @@ def match_coarse(
     pack1=None,
     pack2=None,
     init_flow=None,
+    tap_chunk: int = TAP_CHUNK,
 ):
     """Coarse-level dense matching, frame 1 -> frame 2: (tx, ty, cost),
     absolute int32 targets and their cost (``eppm_tpu/ops/match.py::
     match_coarse``).  Its global matches run through kernel D on the card
     (``global_match``).  ``init_flow`` (H, W, 2) is a temporal warm start
     at this level: merged as a proposal, or, with
-    ``match_cfg.warm_skip_global``, in place of the global stages."""
+    ``match_cfg.warm_skip_global``, in place of the global stages.
+    Every cost sums its taps in partial sums of ``tap_chunk``."""
     h, w = img1.shape[0], img1.shape[1]
     skip = init_flow is not None and match_cfg.warm_skip_global
     levels = 0 if skip else _mini_levels(h, w, match_cfg)
@@ -399,7 +412,7 @@ def match_coarse(
                             match_cfg.global_block)
     flow, cost = _start_direction(packs1, packs2, tiny, match_cfg, cost_cfg,
                                   _make_mini_cost(cost_cfg, match_cfg),
-                                  init_flow)
+                                  init_flow, tap_chunk)
     proposal, s = None, 1
     if match_cfg.global_at_coarse and not skip:
         # the argmax costs N1*N2: above the threshold the proposal grid
@@ -410,7 +423,7 @@ def match_coarse(
             patch_descriptors(packs2[0], match_cfg, stride=s),
             match_cfg.global_block)
     return _finish_direction(packs1[0], packs2[0], flow, cost, proposal, s,
-                             match_cfg, cost_cfg)
+                             match_cfg, cost_cfg, tap_chunk)
 
 
 def match_coarse_bidi(
@@ -421,6 +434,7 @@ def match_coarse_bidi(
     pack1=None,
     pack2=None,
     init_flow=None,
+    tap_chunk: int = TAP_CHUNK,
 ):
     """Bidirectional coarse matching: ((tx1, ty1, c1), (tx2, ty2, c2)),
     sharing the mini-pyramids, descriptors and the global score sweep
@@ -444,10 +458,11 @@ def match_coarse_bidi(
             patch_descriptors(packs2[-1], match_cfg), match_cfg.global_block)
         tiny_f, tiny_b = (t1y, t1x), (t2y, t2x)
     flow_f, cost_f = _start_direction(packs1, packs2, tiny_f, match_cfg,
-                                      cost_cfg, mini_cost, init_flow)
+                                      cost_cfg, mini_cost, init_flow,
+                                      tap_chunk)
     flow_b, cost_b = _start_direction(
         packs2, packs1, tiny_b, match_cfg, cost_cfg, mini_cost,
-        None if init_flow is None else -init_flow)
+        None if init_flow is None else -init_flow, tap_chunk)
 
     prop_f = prop_b = None
     s = 1
@@ -459,25 +474,26 @@ def match_coarse_bidi(
             match_cfg.global_block)
         prop_f, prop_b = (p1y, p1x), (p2y, p2x)
     fwd = _finish_direction(packs1[0], packs2[0], flow_f, cost_f, prop_f, s,
-                            match_cfg, cost_cfg)
+                            match_cfg, cost_cfg, tap_chunk)
     bwd = _finish_direction(packs2[0], packs1[0], flow_b, cost_b, prop_b, s,
-                            match_cfg, cost_cfg)
+                            match_cfg, cost_cfg, tap_chunk)
     return fwd, bwd
 
 
 def _polish_direction(pack1, pack2, flow, cost, match_cfg: MatchConfig,
-                      cost_cfg: CostConfig):
+                      cost_cfg: CostConfig, tap_chunk: int = TAP_CHUNK):
     """Shared tail of the coarse matcher: dense jump-flood propagation,
     the final polish sweep, and the exact-cost stage (symmetric gathered
     cost on a bf16 tap stack: polish ring, propagation, median consensus)."""
     h, w = flow.shape[0], flow.shape[1]
     if match_cfg.prop_steps:
         flow, cost = propagate_dense(
-            pack1, pack2, flow, cost, match_cfg.prop_steps, cost_cfg
+            pack1, pack2, flow, cost, match_cfg.prop_steps, cost_cfg,
+            tap_chunk
         )
     if match_cfg.final_radius > 0:
         flow, cost = descend_level(
-            pack1, pack2, flow, match_cfg.final_radius, cost_cfg
+            pack1, pack2, flow, match_cfg.final_radius, cost_cfg, tap_chunk
         )
     ys, xs = grid(h, w, flow.device)
     gy, gx = _int_flow(flow)

@@ -13,12 +13,16 @@ cost; ties keep the incumbent.  The NNF is absolute int32 targets.
 The costs are the gathered costs of ``ops/cost.py``, plain torch: the
 JAX package reaches no Pallas kernel on this loop.
 
-Randomness goes through a sampler.  ``TorchSampler`` wraps an explicit
-``torch.Generator``; torch cannot reproduce JAX's threefry streams, so
-the draws differ from ``eppm_tpu``'s, and the tests hold the two to each
-other through a sampler that makes JAX's draws.  A sampler has two
-methods, each returning one int32 field per (low, high) bound, uniform
-in [low, high) pixel by pixel (a bound is an int or an int32 field):
+Randomness goes through a sampler.  ``ThreefrySampler`` makes the JAX
+package's draws from a key (``ops/prng.py``: JAX's threefry key
+arithmetic, bit for bit), in the JAX package's key structure: the key
+splits into the init and loop keys, the init fields draw from
+``split(init_key, n)``, iteration i's guesses from ``split(fold_in(
+loop_key, i), n)``.  ``TorchSampler`` draws from an explicit
+``torch.Generator`` instead (its streams are torch's, not the JAX
+package's).  A sampler has two methods, each returning one int32 field
+per (low, high) bound, uniform in [low, high) pixel by pixel (a bound is
+an int or an int32 field):
 
 - ``init(shape, bounds, device)``: the random NNF (and scales);
 - ``search(it, shape, bounds, device)``: iteration ``it``'s guesses, in
@@ -35,11 +39,13 @@ from typing import List, Sequence, Tuple, Union
 import torch
 
 from ..config import CostConfig, PatchMatchConfig
+from . import prng
 from ._util import inv32, pad_edge, shift2d
-from .cost import (patch_cost, patch_cost_candidates, patch_cost_planefitting,
-                   patch_cost_scaled)
+from .cost import (TAP_CHUNK, patch_cost, patch_cost_candidates,
+                   patch_cost_planefitting, patch_cost_scaled)
 
 __all__ = [
+    "ThreefrySampler",
     "TorchSampler",
     "random_init",
     "random_init_scaled",
@@ -52,6 +58,52 @@ __all__ = [
 ]
 
 Bound = Union[int, torch.Tensor]
+
+
+class ThreefrySampler:
+    """The JAX package's draws from ``key`` (a (2,) int64 key of
+    ``ops/prng.py``, e.g. ``prng_key(seed)``), on the key's device.  All
+    fields of one ``init`` or ``search`` call come from one vectorised
+    threefry pass: their keys stacked against the counters, so a call
+    costs the same few hundred elementwise launches for any number of
+    fields.  The iterations' keys, ``split(fold_in(loop_key, i), n)``,
+    are made for a block of iterations at once and kept."""
+
+    def __init__(self, key: torch.Tensor):
+        self.init_key, self.loop_key = prng.split(key).unbind(0)
+        self._iter_keys = {}   # n -> (iterations, n, 2)
+
+    @staticmethod
+    def _draw(keys, shape, bounds: Sequence[Tuple[Bound, Bound]], device
+              ) -> List[torch.Tensor]:
+        keys = keys.to(device)
+
+        def field(v):
+            if torch.is_tensor(v):
+                return v.to(device=device, dtype=torch.int64)
+            return torch.full(tuple(shape), int(v), dtype=torch.int64,
+                              device=device)
+
+        def stack(vals):
+            return torch.stack([field(v).expand(tuple(shape)) for v in vals])
+
+        lo = stack([b[0] for b in bounds])
+        hi = stack([b[1] for b in bounds])
+        return list(prng.randint(keys, shape, lo, hi).unbind(0))
+
+    def init(self, shape, bounds, device) -> List[torch.Tensor]:
+        return self._draw(prng.split(self.init_key, len(bounds)), shape,
+                          bounds, device)
+
+    def search(self, it: int, shape, bounds, device) -> List[torch.Tensor]:
+        n = len(bounds)
+        keys = self._iter_keys.get(n)
+        if keys is None or it >= keys.shape[0]:
+            count = max(16, it + 1, 0 if keys is None else 2 * keys.shape[0])
+            its = torch.arange(count, device=self.loop_key.device)
+            keys = prng.split(prng.fold_in(self.loop_key, its), n)
+            self._iter_keys[n] = keys
+        return self._draw(keys[it], shape, bounds, device)
 
 
 class TorchSampler:
@@ -84,9 +136,12 @@ class TorchSampler:
         return self._draw(shape, bounds, device)
 
 
-def as_sampler(rng) -> "TorchSampler":
-    """A sampler from a ``torch.Generator``; a sampler passes through."""
-    return TorchSampler(rng) if isinstance(rng, torch.Generator) else rng
+def as_sampler(rng):
+    """A sampler from a ``torch.Generator`` or a key; a sampler passes
+    through."""
+    if isinstance(rng, torch.Generator):
+        return TorchSampler(rng)
+    return ThreefrySampler(rng) if torch.is_tensor(rng) else rng
 
 
 def random_init(sampler, h: int, w: int, device=None
@@ -152,11 +207,11 @@ def _propagate(tx, ty, cost, step: int, cost_fn):
 
 
 def propagate_round(pack1, pack2, tx, ty, cost, step: int,
-                    cost_cfg: CostConfig):
+                    cost_cfg: CostConfig, tap_chunk: int = TAP_CHUNK):
     """One Jacobi jump-flood round at distance ``step``: each pixel tries
     the offsets of its 4 axial neighbours at that distance."""
     return _propagate(tx, ty, cost, step, lambda a, b: patch_cost_candidates(
-        pack1, pack2, a, b, cost_cfg))
+        pack1, pack2, a, b, cost_cfg, tap_chunk))
 
 
 def _guess_bounds(tx, ty, mags, w: int, h: int):
@@ -178,7 +233,8 @@ def _search(sampler, it: int, tx, ty, cost, mags, cost_fn):
 
 
 def random_search(sampler, it: int, pack1, pack2, tx, ty, cost,
-                  pm_cfg: PatchMatchConfig, cost_cfg: CostConfig):
+                  pm_cfg: PatchMatchConfig, cost_cfg: CostConfig,
+                  tap_chunk: int = TAP_CHUNK):
     """Shrinking-window random search of iteration ``it``
     (bao_pmflow_kernel.cu:1519-1586): every guess is drawn around the
     incumbent (the reference draws all guesses before evaluating any),
@@ -186,7 +242,7 @@ def random_search(sampler, it: int, pack1, pack2, tx, ty, cost,
     mag halving from ``search_range`` (``search_mags``)."""
     return _search(as_sampler(sampler), it, tx, ty, cost,
                    pm_cfg.search_mags(), lambda a, b: patch_cost_candidates(
-                       pack1, pack2, a, b, cost_cfg))
+                       pack1, pack2, a, b, cost_cfg, tap_chunk))
 
 
 def _patchmatch(pack1, pack2, sampler, pm_cfg: PatchMatchConfig, cost_fn):
@@ -206,16 +262,21 @@ def _patchmatch(pack1, pack2, sampler, pm_cfg: PatchMatchConfig, cost_fn):
 
 
 def patchmatch(pack1, pack2, sampler, pm_cfg: PatchMatchConfig =
-               PatchMatchConfig(), cost_cfg: CostConfig = CostConfig()):
+               PatchMatchConfig(), cost_cfg: CostConfig = CostConfig(),
+               tap_chunk: int = TAP_CHUNK):
     """Full PatchMatch (bao_pmflow_kernel.cu:1760-1826) of pack1 into
     pack2 ((H, W, 4) packs on one device), drawing from ``sampler`` (a
-    sampler or a ``torch.Generator``) -> (tx, ty) absolute int32 targets
-    and their float32 cost."""
+    sampler, a key of ``ops/prng.py`` or a ``torch.Generator``) -> (tx,
+    ty) absolute int32 targets and their float32 cost; the costs sum
+    their taps in chunks of ``tap_chunk`` (``EPPMConfig.
+    cost_tap_chunk``)."""
     return _patchmatch(pack1, pack2, sampler, pm_cfg, lambda a, b:
-                       patch_cost(pack1, pack2, a, b, cost_cfg))
+                       patch_cost(pack1, pack2, a, b, cost_cfg,
+                                  tap_chunk=tap_chunk))
 
 
-def line_propagate(pack1, pack2, tx, ty, cost, cost_cfg: CostConfig):
+def line_propagate(pack1, pack2, tx, ty, cost, cost_cfg: CostConfig,
+                   tap_chunk: int = TAP_CHUNK):
     """Sequential scanline propagation (d_row_propagate /
     d_column_propagate and reverses, bao_pmflow_kernel.cu:862-974): four
     sweeps (row forward, column forward, row reverse, column reverse),
@@ -239,12 +300,14 @@ def line_propagate(pack1, pack2, tx, ty, cost, cost_cfg: CostConfig):
                 cand_tx, cand_ty = (prev_tx + step).clamp(0, w - 1), prev_ty
                 tile = pad1[:, i : i + 1 + 2 * R]
                 c = patch_cost(tile, pack2, cand_tx[:, None],
-                               cand_ty[:, None], cost_cfg, pack1_halo=R)[:, 0]
+                               cand_ty[:, None], cost_cfg, pack1_halo=R,
+                               tap_chunk=tap_chunk)[:, 0]
             else:
                 cand_tx, cand_ty = prev_tx, (prev_ty + step).clamp(0, h - 1)
                 tile = pad1[i : i + 1 + 2 * R]
                 c = patch_cost(tile, pack2, cand_tx[None], cand_ty[None],
-                               cost_cfg, pack1_halo=R)[0]
+                               cost_cfg, pack1_halo=R,
+                               tap_chunk=tap_chunk)[0]
             better = c < out[2][i]
             out[0][i] = torch.where(better, cand_tx, out[0][i])
             out[1][i] = torch.where(better, cand_ty, out[1][i])
@@ -259,7 +322,8 @@ def line_propagate(pack1, pack2, tx, ty, cost, cost_cfg: CostConfig):
 
 
 def patchmatch_scaled(pack1, pack2, sampler, pm_cfg: PatchMatchConfig =
-                      PatchMatchConfig(), cost_cfg: CostConfig = CostConfig()):
+                      PatchMatchConfig(), cost_cfg: CostConfig = CostConfig(),
+                      tap_chunk: int = TAP_CHUNK):
     """Scale-adaptive PatchMatch (baoCudaPatchMatch_Scaled,
     bao_pmflow_kernel.cu:1828-1896): the NNF carries a per-pixel patch
     scale; propagation passes the neighbour's scale with its offset,
@@ -268,13 +332,14 @@ def patchmatch_scaled(pack1, pack2, sampler, pm_cfg: PatchMatchConfig =
     h, w = pack1.shape[0], pack1.shape[1]
     sampler = as_sampler(sampler)
     tx, ty, sc = random_init_scaled(sampler, h, w, pack1.device)
-    cost = patch_cost_scaled(pack1, pack2, tx, ty, sc, cost_cfg)
+    cost = patch_cost_scaled(pack1, pack2, tx, ty, sc, cost_cfg, tap_chunk)
     mags = pm_cfg.search_mags()
     for i in range(pm_cfg.num_iters):
         for step in pm_cfg.prop_steps:
             txs, tys, dirs = _neighbour_targets(tx, ty, step)
             scs = torch.stack([shift2d(sc, dy, dx) for dy, dx in dirs])
-            costs = patch_cost_scaled(pack1, pack2, txs, tys, scs, cost_cfg)
+            costs = patch_cost_scaled(pack1, pack2, txs, tys, scs, cost_cfg,
+                                      tap_chunk)
             tx, ty, sc, cost = _select_best((tx, ty, sc, cost),
                                             (txs, tys, scs, costs))
         bounds = []
@@ -284,7 +349,8 @@ def patchmatch_scaled(pack1, pack2, sampler, pm_cfg: PatchMatchConfig =
         g = sampler.search(i, (h, w), bounds, tx.device)
         txs, tys = torch.stack(g[0::3]), torch.stack(g[1::3])
         scs = _scales(torch.stack(g[2::3]), 4)
-        costs = patch_cost_scaled(pack1, pack2, txs, tys, scs, cost_cfg)
+        costs = patch_cost_scaled(pack1, pack2, txs, tys, scs, cost_cfg,
+                                  tap_chunk)
         tx, ty, sc, cost = _select_best((tx, ty, sc, cost),
                                         (txs, tys, scs, costs))
     return tx, ty, sc, cost
@@ -292,9 +358,11 @@ def patchmatch_scaled(pack1, pack2, sampler, pm_cfg: PatchMatchConfig =
 
 def patchmatch_planefitting(pack1, pack2, sampler, pm_cfg: PatchMatchConfig
                             = PatchMatchConfig(),
-                            cost_cfg: CostConfig = CostConfig()):
+                            cost_cfg: CostConfig = CostConfig(),
+                            tap_chunk: int = TAP_CHUNK):
     """PatchMatch over the plane-fitting cost, the least over 4 affine
     hypotheses (baoCudaPatchMatch_PlaneFitting, bao_pmflow_kernel.cu:
     1899-1963) -> (tx, ty, cost)."""
     return _patchmatch(pack1, pack2, sampler, pm_cfg, lambda a, b:
-                       patch_cost_planefitting(pack1, pack2, a, b, cost_cfg))
+                       patch_cost_planefitting(pack1, pack2, a, b, cost_cfg,
+                                               tap_chunk))

@@ -32,7 +32,7 @@ from ..config import (
 )
 from ._util import (exp_cephes, f32, fma32, ftz, grid, inv32, pad_edge,
                     trunc_i32)
-from .cost import patch_cost_ad_l2, patch_cost_planefitting
+from .cost import TAP_CHUNK, patch_cost_ad_l2, patch_cost_planefitting
 
 __all__ = [
     "lr_check",
@@ -460,17 +460,25 @@ def flow_smoothing(flow, img, cfg: RefineConfig = RefineConfig()):
     return torch.where((wsum > 0)[..., None], out, flow)
 
 
-def blf_refine_flow(flow, pack1, pack2, cost_cfg: CostConfig):
+def blf_refine_flow(flow, pack1, pack2, cost_cfg: CostConfig,
+                    tap_chunk: int = TAP_CHUNK,
+                    origin: Tuple[int, int] = (0, 0), pack1_halo: int = 0):
     """3x3 re-search with the gathered plane-fitting cost around
     trunc(flow) (d_bilateral_refine_flow_planefitting,
     bao_pmflow_kernel.cu:2005-2041; ``eppm_tpu/ops/refine.py::
-    blf_refine_flow`` on one device).  Candidates whose target leaves
-    frame 2 are skipped; the centre starts at the sentinel cost 999999
-    (:2020-2023) and a candidate wins on a strictly lower cost; unknown
-    flow resets to 0."""
+    blf_refine_flow``).  Candidates whose target leaves frame 2 are
+    skipped; the centre starts at the sentinel cost 999999 (:2020-2023)
+    and a candidate wins on a strictly lower cost; unknown flow resets to
+    0.  The costs sum their taps in partial sums of ``tap_chunk``.
+
+    ``flow`` may be a tile whose top-left pixel sits at the global
+    position ``origin``; ``pack1`` is then the matching tile of frame 1
+    with ``pack1_halo`` rows and columns of context on each side, and
+    ``pack2`` the whole frame 2."""
     h, w = flow.shape[:2]
     h2, w2 = pack2.shape[0], pack2.shape[1]
     ys, xs = grid(h, w, flow.device)
+    ys, xs = ys + origin[0], xs + origin[1]
     u, v = flow[..., 0], flow[..., 1]
     unknown = (u > UNKNOWN_FLOW_THRESH) | (v > UNKNOWN_FLOW_THRESH)
     cx = trunc_i32(torch.where(unknown, 0.0, u)) + xs
@@ -484,7 +492,8 @@ def blf_refine_flow(flow, pack1, pack2, cost_cfg: CostConfig):
             tx, ty = cx + m, cy + n
             inb = (tx >= 0) & (tx < w2) & (ty >= 0) & (ty < h2)
             tx, ty = tx.clamp(0, w2 - 1), ty.clamp(0, h2 - 1)
-            cost = patch_cost_planefitting(pack1, pack2, tx, ty, cost_cfg)
+            cost = patch_cost_planefitting(pack1, pack2, tx, ty, cost_cfg,
+                                           tap_chunk, pack1_halo)
             better = torch.where(inb, cost, FLT_MAX) < best_cost
             best_cost = torch.where(better, cost, best_cost)
             best_tx = torch.where(better, tx, best_tx)

@@ -62,33 +62,38 @@ def gaussian_filter(
 
 
 def _resize_axis_indices(
-    out_size: int, in_size: int, ratio: float
+    out_size: int, in_size: int, ratio: float, shift: int = 0
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Static (i0, i1, frac) for one axis, reference semantics: floor
     (equal to the reference's truncation wherever both are defined, see
-    ``eppm_tpu/ops/resize.py::_resize_axis_indices``), clip, (x+1)/r-1."""
+    ``eppm_tpu/ops/resize.py::_resize_axis_indices``), clip, (x+1)/r-1.
+    ``shift`` offsets the taps for an input tile carrying ``shift`` halo
+    rows or columns (floor commutes with the integer shift)."""
     x = np.arange(out_size, dtype=np.float64)
     fx = (x + 1.0) / ratio - 1.0
     xx = np.floor(fx)
     dx = np.clip(fx - xx, 0.0, 1.0)
-    i0 = np.clip(xx.astype(np.int64), 0, in_size - 1)
-    i1 = np.clip(xx.astype(np.int64) + 1, 0, in_size - 1)
+    i0 = np.clip(xx.astype(np.int64) + shift, 0, in_size - 1)
+    i1 = np.clip(xx.astype(np.int64) + 1 + shift, 0, in_size - 1)
     return i0, i1, dx.astype(np.float32)
 
 
 def bilinear_resize(
     img: torch.Tensor, out_h: int, out_w: int, ratio: float,
-    fused: bool = False,
+    fused: bool = False, shift: int = 0,
 ) -> torch.Tensor:
     """Bilinear resize with the reference's coordinate mapping; ``ratio``
     is out/in scale (0.5**i for pyramid levels, 2.0 for flow upsampling).
     ``fused``: each a * (1 - f) + b * f as XLA's CPU backend fuses it
     where the resize makes up its own program (the temporal init,
-    ``pipeline._coarse_init``): fma32(a, 1 - f, b * f)."""
+    ``pipeline._coarse_init``): fma32(a, 1 - f, b * f).  ``shift``: the
+    input is a tile with ``shift`` halo rows and columns on each side
+    and the output the tile's own upsampled pixels (the clamps then bind
+    at the halo's edge, which holds the globally clamped values)."""
     h, w = img.shape[0], img.shape[1]
     dev = img.device
-    y0, y1, fy = _resize_axis_indices(out_h, h, ratio)
-    x0, x1, fx = _resize_axis_indices(out_w, w, ratio)
+    y0, y1, fy = _resize_axis_indices(out_h, h, ratio, shift)
+    x0, x1, fx = _resize_axis_indices(out_w, w, ratio, shift)
     tail = (1,) * (img.dim() - 2)
     fy = torch.from_numpy(fy).to(dev).reshape((-1, 1) + tail)
     fx = torch.from_numpy(fx).to(dev).reshape((1, -1) + tail)

@@ -8,10 +8,10 @@ bao_flow_patchmatch_multiscale_cuda.cpp:217-315):
     transform and pack per level
   coarsest level: bidirectional dense matching (warm-started from
     ``init_flow`` when given), or with ``match_engine="patchmatch"`` two
-    independent PatchMatch searches, forward and backward, drawing from a
-    ``torch.Generator`` -> left-right check -> outlier removal ->
-    occlusion reconstruction (fill-first, or the legacy WMF-then-fill
-    order) -> flow
+    independent PatchMatch searches, forward and backward, drawing from
+    the two halves of a split key (JAX's threefry draws) -> left-right
+    check -> outlier removal -> occlusion reconstruction (fill-first, or
+    the legacy WMF-then-fill order) -> flow
   each finer level: bilinear upsample x2 -> dense refine pass 1 (kernel A;
     its plane mode with ``dense_pass1_planes``) -> 3x3 median -> dense
     refine pass 2 (kernel A; plane mode with ``dense_pass2_planes``; at
@@ -45,7 +45,8 @@ from .ops.cuda_wmf import weighted_median_filter_auto
 from .ops.dense import dense_refine_flow, median3_flow
 from .ops.match import match_coarse_bidi
 from .ops.occlusion import coarse_occlusion_reconstruct
-from .ops.patchmatch import TorchSampler, patchmatch
+from .ops.patchmatch import ThreefrySampler, TorchSampler, patchmatch
+from .ops.prng import prng_key, split
 from .ops.refine import (blf_refine_flow, flow_to_nnf, lr_check, nnf_to_flow,
                           outlier_removal)
 from .ops.resize import bilinear_resize, gaussian_filter, gaussian_pyramid
@@ -91,6 +92,48 @@ def _coarse_init(init_flow: torch.Tensor, ch: int, cw: int) -> torch.Tensor:
     return bilinear_resize(init_flow, ch, cw, r, fused=True) * f32(r)
 
 
+def coarse_flow(levels1, packs1, levels2, packs2, cfg: EPPMConfig,
+                init_flow: Optional[torch.Tensor] = None,
+                key: Optional[torch.Tensor] = None,
+                samplers=None) -> torch.Tensor:
+    """The coarsest level of ``compute_flow``: the bidirectional match
+    (the dense matcher, or the PatchMatch engine drawing from ``samplers``
+    or, by default, from the halves of ``key`` or of ``prng_key(cfg.
+    seed)``), the left-right check, outlier removal and the occlusion
+    chain -> the coarse flow (H_top, W_top, 2)."""
+    top = len(packs1) - 1
+    chunk = cfg.cost_tap_chunk
+    if cfg.match_engine == "dense":
+        ci = None
+        if init_flow is not None:
+            ci = _coarse_init(init_flow.to(torch.float32),
+                              packs1[top].shape[0], packs1[top].shape[1])
+        (tx1, ty1, c1), (tx2, ty2, c2) = match_coarse_bidi(
+            levels1[top], levels2[top], cfg.cost, cfg.match,
+            packs1[top], packs2[top], init_flow=ci, tap_chunk=chunk,
+        )
+    else:
+        if samplers is None:
+            if key is None:
+                key = prng_key(cfg.seed, packs1[top].device)
+            samplers = tuple(ThreefrySampler(k) for k in split(key))
+        tx1, ty1, c1 = patchmatch(packs1[top], packs2[top], samplers[0],
+                                  cfg.patchmatch, cfg.cost, chunk)
+        tx2, ty2, c2 = patchmatch(packs2[top], packs1[top], samplers[1],
+                                  cfg.patchmatch, cfg.cost, chunk)
+    otx, oty = tx1, ty1  # pre-LR matches: arbitration candidates
+    tx1, ty1, c1, tx2, ty2, c2 = lr_check(
+        tx1, ty1, c1, tx2, ty2, c2, cfg.lr_thresh
+    )
+    tx1, ty1, c1 = outlier_removal(tx1, ty1, c1, cfg.refine)
+    tx1, ty1 = coarse_occlusion_reconstruct(
+        tx1, ty1, levels1[top], cfg.refine,
+        packs=(packs1[top], packs2[top]), cost_cfg=cfg.cost,
+        orig=(otx, oty),
+    )
+    return nnf_to_flow(tx1, ty1)
+
+
 def compute_flow(
     img1: torch.Tensor,
     img2: torch.Tensor,
@@ -99,6 +142,7 @@ def compute_flow(
     init_flow: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
     samplers=None,
+    key: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Dense flow frame1 -> frame2 for an (H, W, 3) pair (uint8 or float
     in [0, 1]) -> (H, W, 2) float32.  It runs on the frames' device: CUDA
@@ -112,53 +156,31 @@ def compute_flow(
     package does.  ``fine_level_wmf`` adds one full-image weighted median
     iteration after each fine level's smoothing.
 
-    The PatchMatch engine (``cfg.match_engine="patchmatch"``) draws from
-    ``generator`` in the place of JAX's key, the forward search first:
-    by default a new generator on the frames' device seeded with
-    ``cfg.seed``, so the result is the same run after run (torch's
-    streams are not JAX's, so the draws differ from ``eppm_tpu``'s).
-    ``samplers``, a (forward, backward) pair of samplers
-    (``ops/patchmatch.py``), replaces the generator; the tests pass ones
-    that make JAX's draws.  The dense engine draws nothing."""
+    The PatchMatch engine (``cfg.match_engine="patchmatch"``) draws as
+    the JAX package does from ``key`` (a key of ``ops/prng.py``; default
+    ``prng_key(cfg.seed)`` on the frames' device), split into the forward
+    and the backward search's keys (``ThreefrySampler``): the same draws
+    as ``eppm_tpu`` for the same key, on the card and on the CPU alike.
+    In its place, ``generator`` (a ``torch.Generator``, one stream for
+    both searches, the forward first) or ``samplers`` (a (forward,
+    backward) pair of samplers, ``ops/patchmatch.py``) may be given, one
+    of the three at most.  The dense engine draws nothing.  Every cost
+    sums its taps in partial sums of ``cfg.cost_tap_chunk``."""
     if img1.device != img2.device:
         raise ValueError(f"frames on {img1.device} and {img2.device}")
-    levels1, packs1 = prepare_pyramids(img1, cfg)
-    levels2, packs2 = prepare_pyramids(img2, cfg)
-    top = len(packs1) - 1
-
     if init_flow is not None and init_flow.device != img1.device:
         raise ValueError(f"init_flow on {init_flow.device}, frames on "
                          f"{img1.device}")
-    if cfg.match_engine == "dense":
-        ci = None
-        if init_flow is not None:
-            ci = _coarse_init(init_flow.to(torch.float32),
-                              packs1[top].shape[0], packs1[top].shape[1])
-        (tx1, ty1, c1), (tx2, ty2, c2) = match_coarse_bidi(
-            levels1[top], levels2[top], cfg.cost, cfg.match,
-            packs1[top], packs2[top], init_flow=ci,
-        )
-    else:
-        if samplers is None:
-            if generator is None:
-                generator = torch.Generator(img1.device)
-                generator.manual_seed(cfg.seed)
-            samplers = (TorchSampler(generator),) * 2
-        tx1, ty1, c1 = patchmatch(packs1[top], packs2[top], samplers[0],
-                                  cfg.patchmatch, cfg.cost)
-        tx2, ty2, c2 = patchmatch(packs2[top], packs1[top], samplers[1],
-                                  cfg.patchmatch, cfg.cost)
-    otx, oty = tx1, ty1  # pre-LR matches: arbitration candidates
-    tx1, ty1, c1, tx2, ty2, c2 = lr_check(
-        tx1, ty1, c1, tx2, ty2, c2, cfg.lr_thresh
-    )
-    tx1, ty1, c1 = outlier_removal(tx1, ty1, c1, cfg.refine)
-    tx1, ty1 = coarse_occlusion_reconstruct(
-        tx1, ty1, levels1[top], cfg.refine,
-        packs=(packs1[top], packs2[top]), cost_cfg=cfg.cost,
-        orig=(otx, oty),
-    )
-    flow = nnf_to_flow(tx1, ty1)
+    if sum(x is not None for x in (key, generator, samplers)) > 1:
+        raise ValueError("pass one of key, generator and samplers")
+    if generator is not None:
+        samplers = (TorchSampler(generator),) * 2
+    chunk = cfg.cost_tap_chunk
+    levels1, packs1 = prepare_pyramids(img1, cfg)
+    levels2, packs2 = prepare_pyramids(img2, cfg)
+    top = len(packs1) - 1
+    flow = coarse_flow(levels1, packs1, levels2, packs2, cfg, init_flow,
+                       key, samplers)
 
     ratio_up = 1.0 / cfg.pyramid.ratio
     for lvl in range(top - 1, -1, -1):
@@ -174,6 +196,7 @@ def compute_flow(
                 cfg.warp_dtype, cfg.dense_pass1_planes,
                 subpixel_fit=fit and n == 1,
                 subpixel_min_curv=cfg.dense_subpixel_min_curv,
+                tap_chunk=chunk,
             )
             for i in range(n - 1):
                 flow = dense_refine_flow(
@@ -183,9 +206,11 @@ def compute_flow(
                     cfg.dense_pass2_planes,
                     subpixel_fit=fit and i == n - 2,
                     subpixel_min_curv=cfg.dense_subpixel_min_curv,
+                    tap_chunk=chunk,
                 )
         else:
-            flow = blf_refine_flow(flow, packs1[lvl], packs2[lvl], cfg.cost)
+            flow = blf_refine_flow(flow, packs1[lvl], packs2[lvl], cfg.cost,
+                                   chunk)
         flow = flow_smoothing_auto(flow, levels1[lvl], cfg.refine)
         if fine_level_wmf:
             ftx, fty = flow_to_nnf(flow)
@@ -210,8 +235,8 @@ class EPPMFlow(nn.Module):
     ``forward`` move the frames there, and the flow comes back there.
     Without a CUDA device the default raises; ``device="cpu"`` runs the
     kernels' plain versions.  Under the PatchMatch engine each call draws
-    from the ``generator`` it is given, else from a new one seeded with
-    ``cfg.seed`` (``compute_flow``)."""
+    from the ``key``, ``generator`` or ``samplers`` it is given, else
+    from ``prng_key(cfg.seed)`` (``compute_flow``)."""
 
     def __init__(self, cfg: EPPMConfig = DEFAULT_CONFIG,
                  device: Union[str, torch.device] = "cuda"):
@@ -244,18 +269,26 @@ class EPPMFlow(nn.Module):
     def compute_flow(self, fine_level_wmf: bool = False,
                      init_flow: Optional[torch.Tensor] = None,
                      generator: Optional[torch.Generator] = None,
-                     samplers=None) -> torch.Tensor:
+                     samplers=None,
+                     key: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The flow of the ``set_data`` pair; ``init_flow`` (moved to the
-        model's device) warm-starts the dense coarse match, ``generator``
-        or ``samplers`` feed the PatchMatch engine (``compute_flow``)."""
+        model's device) warm-starts the dense coarse match, ``key``,
+        ``generator`` or ``samplers`` feed the PatchMatch engine
+        (``compute_flow``)."""
         if self._img1 is None:
             raise RuntimeError("set_data() must be called before compute_flow()")
         if init_flow is not None:
             init_flow = init_flow.to(self.device)
+        if key is not None:
+            key = key.to(self.device)
         return compute_flow(self._img1, self._img2, self.cfg,
-                            fine_level_wmf, init_flow, generator, samplers)
+                            fine_level_wmf, init_flow, generator, samplers,
+                            key)
 
     def forward(self, img1: torch.Tensor, img2: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                key: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if key is not None:
+            key = key.to(self.device)
         return compute_flow(img1.to(self.device), img2.to(self.device),
-                            self.cfg, generator=generator)
+                            self.cfg, generator=generator, key=key)

@@ -194,11 +194,13 @@ def test_main_path_hands_kernels_arguments_they_take(monkeypatch):
 
         monkeypatch.setattr(mod, name, checked)
 
-    def single(p1, w2, cands, cfg, use_planes=False):
+    def single(p1, w2, cands, cfg, use_planes=False, tap_chunk=25):
         cuda_cost.check_cost_args(p1, w2, 1, [(a, b, 0) for a, b in cands],
                                   cfg, cuda_cost.cost_tables(cfg, use_planes))
+        assert tap_chunk == 25   # the default cost_tap_chunk
 
-    def multi(p1, stack, cfg):
+    def multi(p1, stack, cfg, tap_chunk=25):
+        assert tap_chunk == 25
         k = stack.shape[0]
         cuda_cost.check_cost_args(p1, stack, k, [(0, 0, i) for i in range(k)],
                                   cfg)
@@ -230,11 +232,11 @@ def test_plane_and_match_paths_hand_kernels_arguments_they_take(
     orig_cost = cuda_cost.residual_costs_auto
     orig_argmax = cuda_match.global_argmax_auto
 
-    def cost(p1, w2, cands, cfg, use_planes=False):
+    def cost(p1, w2, cands, cfg, use_planes=False, tap_chunk=25):
         cuda_cost.check_cost_args(p1, w2, 1, [(a, b, 0) for a, b in cands],
                                   cfg, cuda_cost.cost_tables(cfg, use_planes))
         seen["planes" if use_planes else "fronto"] += 1
-        return orig_cost(p1, w2, cands, cfg, use_planes)
+        return orig_cost(p1, w2, cands, cfg, use_planes, tap_chunk)
 
     def argmax(d1, d2, block=2048):
         cuda_match.check_argmax_args(d1, d2)
@@ -302,6 +304,25 @@ def test_kernel_a_matches_plain(cuda, radius, cfg_name):
     got = cuda_cost.residual_costs_auto(p1, p2, cands, cfg)
     assert cuda_cost.SINGLE.launches == n + 1
     want = cuda_cost.residual_costs(p1, p2, cands, cfg)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [7, 49])
+def test_kernel_a_tap_chunk_matches_plain(cuda, chunk):
+    """``cost_tap_chunk`` reaches kernel A's partial sums in each mode:
+    identical to the plain version at the same chunk."""
+    (_, p1), (_, p2) = _packs(50, 70, device=cuda)
+    cands = center_out_offsets(1)
+    for planes in (False, True):
+        got = cuda_cost.residual_costs_auto(p1, p2, cands, CFG.cost, planes,
+                                            chunk)
+        want = cuda_cost.residual_costs(p1, p2, cands, CFG.cost, planes,
+                                        chunk)
+        assert torch.equal(got, want)
+    stack = torch.stack([torch.roll(p2, s, 1) for s in range(5)])
+    got = cuda_cost.residual_costs_multiwarp_auto(p1, stack, CFG.cost, chunk)
+    want = cuda_cost.residual_costs_multiwarp(p1, stack, CFG.cost, chunk)
     assert torch.equal(got, want)
 
 
@@ -494,6 +515,26 @@ def test_slice_on_the_card_matches_the_cpu(cuda):
     cpu = pipeline.compute_flow(img1, img2).numpy()
     d = np.abs(gpu - cpu).max(axis=-1)
     assert (d < 1e-3).mean() >= 0.98 and d.mean() < 0.05
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["dense", "patchmatch"])
+def test_sharded_on_the_card_matches_the_cpu(cuda, engine):
+    """The multi-device path on a (1, 2, 2) mesh of the card repeated
+    gives the CPU mesh's flow bit for bit (kernels A, B and C on the
+    tiles and the replicated coarse level; the default key's draws)."""
+    from eppm_tpu_torch.parallel import compute_flow_sharded, make_mesh
+
+    cfg = dataclasses.replace(CFG, match_engine=engine)
+    rng = np.random.default_rng(5)
+    img1 = torch.from_numpy((rng.random((64, 96, 3)) * 255).astype(np.uint8))
+    img2 = torch.roll(img1, (1, -2), (0, 1))
+    got = compute_flow_sharded(img1[None], img2[None],
+                               make_mesh(1, 2, 2, devices=[cuda] * 4), cfg)
+    want = compute_flow_sharded(img1[None], img2[None],
+                                make_mesh(1, 2, 2, devices=["cpu"] * 4), cfg)
+    assert got.device == cuda
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.gpu
