@@ -101,7 +101,17 @@ final line is not printed):
    default key (JAX's threefry draws, integer ops on both devices): the
    flow at 192x256 identical, and ``patchmatch``, ``patchmatch_scaled``,
    ``patchmatch_planefitting`` (4 iterations each) and
-   ``line_propagate`` at 48x64 with identical targets.
+   ``line_propagate`` at 48x64 with identical targets;
+6. the evaluation dossier on the card: the local eval set
+   (``eppm_tpu_torch.evalset``: 480x640, 436x1024 and 375x1242 cases,
+   KITTI PNG16 ground truth, the holdout group) built into a temporary
+   directory and scored by ``eppm_tpu_torch.eval_report`` on both
+   engines, over every case ``eppm_tpu_torch/evalset_reference.json``
+   holds for each (the JAX package's scores, made on the CPU by
+   ``tools/torch_eval_parity.py``): each case's EPE within 0.01 of the
+   JAX package's outside the holdout group (there logged, not judged),
+   its ms by ``DeviceTimer``, the engine's kernels launched (the counts
+   zeroed before it), and the launches per pair at each group's shape.
 
 Each phase logs its seconds.  The line before the last is one JSON object
 with a row per kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -1740,6 +1750,75 @@ def pm_agreement(dev) -> None:
               "CPU")
 
 
+# the kernels each engine launches on every pair of the eval set: the
+# dense engine kernel A in both forms, B and C; PatchMatch A (no multiwarp
+# form), B and C
+DOSSIER_KERNELS = {
+    "dense": ["cost_terms", "residual_costs", "residual_costs_multiwarp",
+              "flow_smoothing_paired", "weighted_median_filter"],
+    "patchmatch": ["cost_terms", "residual_costs", "flow_smoothing_paired",
+                   "weighted_median_filter"],
+}
+
+
+def phase_dossier(dev) -> None:
+    """The evaluation dossier on the card (``eppm_tpu_torch.eval_report``)
+    against the JAX package's scores (``evalset_reference.json``, made on
+    the CPU by ``tools/torch_eval_parity.py``): the set built into a
+    temporary directory, then for each engine every case the reference
+    holds for it.  Per group first one case alone, untimed (the kernels'
+    first calls at that shape), its launches per pair logged; then the
+    engine's cases with the launch counts zeroed just before and read
+    just after, each of the engine's kernels launched.  Each case: EPE,
+    its difference from JAX's and its ms (``DeviceTimer``); outside the
+    holdout group |EPE - EPE_jax| <= ``eval_report.TOLERANCE``."""
+    import contextlib
+    import io as _io
+    import os
+    import tempfile
+
+    from eppm_tpu_torch import eval_report, evalset
+
+    log("== phase 6: the evaluation dossier on the card against eppm_tpu")
+    ref = eval_report.load_reference()
+    with tempfile.TemporaryDirectory() as root:
+        with contextlib.redirect_stdout(_io.StringIO()):
+            evalset.build(root)
+        for engine in eval_report.ENGINES:
+            cases = sorted(ref.get(engine, {}))
+            check(bool(cases), f"the reference holds no case of {engine}")
+            for group in evalset.GROUPS:
+                first = [c for c in cases if c.startswith(group + "/")][:1]
+                if not first:
+                    continue
+                before = {n: c.launches for n, c in counters().items()}
+                eval_report.run(root, [engine], dev, first)
+                per = {n: c.launches - before[n] for n, c in
+                       counters().items() if c.launches > before[n]}
+                log(f"dossier {engine} {group}: launches per pair {per}")
+            out = {}
+            drive(f"dossier {engine}", DOSSIER_KERNELS[engine],
+                  lambda: out.update(eval_report.run(
+                      root, [engine], dev, cases, reference=ref)))
+            for key, rep in out["groups"].items():
+                group = key.split("/")[0]
+                for name, r in rep["sequences"].items():
+                    check(r["epe"] is not None and np.isfinite(r["epe"]),
+                          f"{engine} {group}/{name}: EPE {r['epe']}")
+                    timing = "" if group == "holdout" else \
+                        f"  {r['ms']:.1f} ms (DeviceTimer)"
+                    log(f"dossier {engine} {group}/{name}: EPE "
+                        f"{r['epe']:.5f}  jax {r['epe_jax']:.5f}  delta "
+                        f"{r['delta']:+.6f}{timing}")
+            done = sorted(f"{k.split('/')[0]}/{n}"
+                          for k, rep in out["groups"].items()
+                          for n in rep["sequences"])
+            check(done == cases, f"{engine}: scored {done}, expected {cases}")
+            check(not out["misses"],
+                  f"EPE more than {eval_report.TOLERANCE} from eppm_tpu's: "
+                  f"{out['misses']}")
+
+
 SOURCES = {  # name: (source, the TPU kernel it replaces, the path it runs on)
     "cost_terms": ("eppm_tpu_torch/csrc/cost.cu",
                    "eppm_tpu/ops/pallas_cost.py:173 (the AD + census terms; "
@@ -1785,6 +1864,7 @@ def main() -> int:
     rows = timed(phase_kernels, dev)
     launches = timed(phase_end_to_end, dev)
     timed(phase_agreement, dev)
+    timed(phase_dossier, dev)
     kernels = []
     for name, (source, replaces, path) in SOURCES.items():
         r = rows[name]

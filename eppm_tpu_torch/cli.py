@@ -53,6 +53,7 @@ from .metrics import bad_pixel_rate, flow_error
 from .ops.color import flow_to_color
 from .parallel import compute_flow_sharded, make_mesh
 from .pipeline import compute_flow
+from .utils.timing import DeviceTimer
 
 __all__ = ["main", "apply_overrides", "PRESETS"]
 
@@ -167,23 +168,35 @@ def mesh_of(spec: str, device: torch.device):
 
 
 def evaluate_dir(eval_dir: str, pattern: str, cfg: EPPMConfig,
-                 device: torch.device, border: int = 0, mesh=None) -> dict:
-    """The flow of each sequence directory of ``eval_dir`` (sorted) that
-    holds the two frames of ``pattern`` ("F1,F2,GT"), scored against its
-    ground truth where it has one ({"epe": None} where not) -> {
-    "sequences": {name: report}, "mean_epe": the mean of the EPEs}; on
-    ``mesh`` through the multi-device path."""
+                 device: torch.device, border: int = 0, mesh=None,
+                 names: Optional[List[str]] = None,
+                 timed: bool = False) -> dict:
+    """The flow of each sequence directory of ``eval_dir`` (sorted; only
+    ``names`` where given) that holds the two frames of ``pattern``
+    ("F1,F2,GT"), scored against its ground truth where it has one
+    ({"epe": None} where not) -> {"sequences": {name: report}, "mean_epe":
+    the mean of the EPEs}; with ``timed`` each report also holds the
+    pair's "ms" by ``DeviceTimer`` (frames on the device to flow
+    computed); on ``mesh`` through the multi-device path."""
     run = flow_fn(cfg, mesh)
     f1n, f2n, gtn = pattern.split(",")
     results = {}
     for name in sorted(os.listdir(eval_dir)):
+        if names is not None and name not in names:
+            continue
         d = os.path.join(eval_dir, name)
         f1, f2, gt = (os.path.join(d, n) for n in (f1n, f2n, gtn))
         if not (os.path.isfile(f1) and os.path.isfile(f2)):
             continue
-        flow = run(_load(f1, device), _load(f2, device)).cpu().numpy()
+        img1, img2 = _load(f1, device), _load(f2, device)
+        timer = DeviceTimer(device).start()
+        flow = run(img1, img2)
+        ms = timer.stop() * 1e3
+        flow = flow.cpu().numpy()
         results[name] = (_evaluate(flow, gt, border) if os.path.isfile(gt)
                          else {"epe": None})
+        if timed:
+            results[name]["ms"] = ms
     epes = [r["epe"] for r in results.values() if r["epe"] is not None]
     return {"sequences": results,
             "mean_epe": float(np.mean(epes)) if epes else None,

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from ._util import pad_edge
+from ._util import f32, fma32, pad_edge
 
 # (dx, dy) per bit, reference order (census_kernel.cu:53-60).
 NEIGHBOR_OFFSETS = (
@@ -22,8 +22,14 @@ __all__ = ["census_transform", "luminance", "NEIGHBOR_OFFSETS"]
 
 
 def luminance(img: torch.Tensor) -> torch.Tensor:
-    """Census-comparison luminance: 0.3R + 0.6G + 0.1B (census_kernel.cu:41)."""
-    return 0.3 * img[..., 0] + 0.6 * img[..., 1] + 0.1 * img[..., 2]
+    """Census-comparison luminance: 0.3R + 0.6G + 0.1B (census_kernel.cu:41),
+    rounded as the JAX package's jitted programs compute it: XLA's CPU
+    backend fuses ``(0.3R + 0.6G) + 0.1B`` into fma(B, 0.1, fma(R, 0.3,
+    0.6G)).  On texture whose neighbours' luminances tie up to the last
+    bit (the eval set's oriented stripes), the unfused sum flips census
+    bits and, through them, matches."""
+    return fma32(img[..., 2], f32(0.1),
+                 fma32(img[..., 0], f32(0.3), img[..., 1] * f32(0.6)))
 
 
 def census_transform(img: torch.Tensor) -> torch.Tensor:

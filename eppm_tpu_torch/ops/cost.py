@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ..config import CostConfig
-from ._util import exp_cephes, ftz, inv32, pad_edge, popcount8, shift2d
+from ._util import exp_cephes, fma32, ftz, inv32, pad_edge, popcount8, shift2d
 
 __all__ = ["pack_frame", "make_patch_stack", "patch_cost_stack", "tap_weight",
            "cost_constants", "ad_census", "census_lut", "bilateral_cost",
@@ -177,13 +177,27 @@ def patch_cost_stack(
     flat = stack2.reshape(H2 * W2, 4 * (T + 1))
     idx = (tys.clamp(0, H2 - 1) * W2 + txs.clamp(0, W2 - 1)).reshape(-1)
     taps2 = flat[idx.long()].reshape(K, H, W, T + 1, 4).to(torch.float32)
-    taps1 = list(cfg.tap_offsets)[:T]
-    pairs = ((pad1[R + i1 : R + i1 + H, R + j1 : R + j1 + W], taps2[..., t, :])
-             for t, (i1, j1) in enumerate(taps1))
-    gws = [tap_weight(i1, j1, cfg.sigma_spatial) for (i1, j1) in taps1]
-    # the JAX form sums every tap in one running sum: one chunk
-    return bilateral_cost(pairs, pack1[..., :3], taps2[..., T, :3], gws, cfg,
-                          chunk=len(gws))
+    # The JAX form adds the taps to one running sum in an unrolled loop,
+    # and XLA's CPU backend fuses its multiply-adds: dr1^2 + dr2^2 into
+    # fma(dr1, dr1, dr2^2) and each cost_sum + w * term into fma(w, term,
+    # cost_sum).  (``bilateral_cost``, the residual costs' form, still adds
+    # rounded products in sequence where XLA sums fused ones in vector
+    # lanes; kernel A does the same.)
+    inv_lam_ad2, inv_lam_cen2, inv_sig_r2 = cost_constants(cfg)
+    center1, center2 = pack1[..., :3], taps2[..., T, :3]
+    cost_sum = weight_sum = torch.zeros(txs.shape, dtype=torch.float32,
+                                        device=txs.device)
+    for t, (i1, j1) in enumerate(list(cfg.tap_offsets)[:T]):
+        p1 = pad1[R + i1 : R + i1 + H, R + j1 : R + j1 + W]
+        p2 = taps2[..., t, :]
+        dr1 = maxabs3(center1, p1[..., :3])
+        dr2 = maxabs3(center2, p2[..., :3])
+        wgt = ftz(exp_cephes(-fma32(dr1, dr1, dr2 * dr2) * inv_sig_r2)
+                  * tap_weight(i1, j1, cfg.sigma_spatial))
+        cost_sum = fma32(wgt, ad_census(p1, p2, inv_lam_ad2, inv_lam_cen2),
+                         cost_sum)
+        weight_sum = weight_sum + wgt
+    return cost_sum / weight_sum.clamp_min(1e-30)
 
 
 def plane_offsets(cfg: CostConfig) -> List[Tuple[Tuple[int, int], ...]]:

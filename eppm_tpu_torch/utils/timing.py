@@ -4,7 +4,8 @@ timing.py``, after the reference's timer classes, SURVEY.md §5):
 * ``Timer``: the wall clock (bao_timer_cpu);
 * ``DeviceTimer``: on a CUDA device the time between two CUDA events on
   the current stream, read after the end event has completed
-  (bao_timer_gpu); on the CPU the wall clock;
+  (bao_timer_gpu); on the CPU, where the caller asks for it, the wall
+  clock;
 * ``time_stage``: the least of n runs of a callable, each ending in a
   synchronize of the device;
 * ``profile_trace``: ``torch.profiler`` around a block, its Chrome trace
@@ -24,11 +25,13 @@ __all__ = ["Timer", "DeviceTimer", "time_stage", "profile_trace"]
 
 
 def _device(device) -> torch.device:
-    """``device``, by default the current CUDA device where there is one,
-    else the CPU."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    return torch.device(device)
+    """``device``, by default the current CUDA device; a CUDA device where
+    there is none raises (``device="cpu"`` times the host)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the timers run on the CUDA device and there is "
+                           "none: pass device='cpu' for the CPU")
+    return device
 
 
 def _sync(device: torch.device) -> None:
@@ -61,7 +64,7 @@ class Timer:
 class DeviceTimer(Timer):
     """Seconds from ``start`` until the device has done the work enqueued
     before ``stop``: CUDA events on ``device`` (the current CUDA device
-    by default, when there is one), the wall clock on the CPU."""
+    by default; it raises without one), the wall clock on the CPU."""
 
     def __init__(self, device: Union[str, torch.device, None] = None):
         super().__init__()
@@ -90,7 +93,7 @@ def time_stage(fn: Callable, *args, n: int = 5, label: str = "",
                device: Union[str, torch.device, None] = None) -> float:
     """The least wall time in seconds of ``n`` runs of ``fn(*args)``
     after one warm-up run, each ending in a synchronize of ``device``
-    (the current CUDA device by default, when there is one)."""
+    (the current CUDA device by default; it raises without one)."""
     device = _device(device)
     fn(*args)
     _sync(device)
