@@ -13,7 +13,10 @@ final line is not printed):
    shapes the main paths give them: kernel A identical (max |diff| 0,
    no value differs) in its fronto, multiwarp and plane modes, and its
    terms pass identical to ``cost_terms``, and in its fronto mode at
-   ``cost_tap_chunk=49`` (1080p, 49 taps in one partial sum); kernel B
+   ``cost_tap_chunk=49`` (1080p, 49 taps in one partial sum), and in each
+   other form of XLA's sums that a site of the pipeline takes (one
+   candidate; windows of 32 taps at chunk 49 in every mode, the mini
+   levels' 81 taps in two chunks); kernel B
    identical, the
    paired kernel at the default radius 10 and the one-pass kernel at
    radius 6 (the launch counts say which ran); kernel C identical
@@ -110,7 +113,9 @@ final line is not printed):
    holds for each (the JAX package's scores, made on the CPU by
    ``tools/torch_eval_parity.py``): each case's EPE within 0.01 of the
    JAX package's outside the holdout group (there logged, not judged),
-   its ms by ``DeviceTimer``, the engine's kernels launched (the counts
+   beside the share of pixels whose CPU flow agrees with the JAX
+   package's within 1e-3 (the reference's), its ms by ``DeviceTimer``,
+   the engine's kernels launched (the counts
    zeroed before it), and the launches per pair at each group's shape.
 
 Each phase logs its seconds.  The line before the last is one JSON object
@@ -629,6 +634,48 @@ def phase_kernels(dev) -> dict:
     rows["residual_costs"]["max_abs_err"] = max(
         rows["residual_costs"]["max_abs_err"], err)
     del p1, p2, warped, got, ref
+
+    # every form of XLA's sums that the sites of the pipeline take
+    # (ops/cost.py::bilateral_cost): rescore's one candidate, and at chunk
+    # 49 the windows of 32 taps with one chunk and with more, padded, in
+    # each mode; identical, untimed
+    forms = [  # (h, w, candidates, cost config, mode, chunk)
+        (120, 160, [(0, 0)], cfg.cost, "fronto", 25),
+        (120, 160, [(0, 0)], cfg.cost, "fronto", 49),
+        (60, 80, center_out_offsets(3), mini, "fronto", 49),
+        (480, 640, center_out_offsets(1), cfg.pass2_cost, "fronto", 49),
+        (480, 640, center_out_offsets(1), cfg.cost, "planes", 49),
+        (480, 640, center_out_offsets(1), cfg.pass2_cost, "planes", 49),
+        (120, 160, None, cfg.cost, "multiwarp", 49),
+    ]
+    for h, w, offsets, ccfg, mode, chunk in forms:
+        (_, p1), (_, p2) = _packs(h, w, 3, -2, SEED + 2, dev)
+        g = torch.full((h, w), 2, dtype=torch.int32, device=dev)
+        if mode == "multiwarp":
+            stack = torch.stack([warp_pack(p2, g + s, -g + s)
+                                 for s in range(-2, 3)]).contiguous()
+            got = cuda_cost.residual_costs_multiwarp_cuda(p1, stack, ccfg,
+                                                          chunk)
+            ref = cuda_cost.residual_costs_multiwarp(p1, stack, ccfg, chunk)
+            name, k = "residual_costs_multiwarp", 5
+        else:
+            warped = warp_pack(p2, g + 1, -g)
+            kernel = (cuda_cost.residual_costs_planes_cuda
+                      if mode == "planes" else cuda_cost.residual_costs_cuda)
+            got = kernel(p1, warped, offsets, ccfg, chunk)
+            ref = cuda_cost.residual_costs(p1, warped, offsets, ccfg,
+                                           mode == "planes", chunk)
+            name = ("residual_costs_planes" if mode == "planes"
+                    else "residual_costs")
+            k = len(offsets)
+        err = float((got - ref).abs().max())
+        differ = float((got != ref).float().mean())
+        log(f"{mode} {h}x{w} K={k} taps={len(ccfg.tap_offsets)} chunk="
+            f"{chunk}: max|diff| {err:.3g} ({differ:.2%} differ)")
+        check(err == 0 and differ == 0, f"kernel A {mode} {h}x{w} K={k} "
+              f"chunk {chunk}: max|diff| {err}, {differ:.2%} differ")
+        row = rows.setdefault(name, {"max_abs_err": 0.0})
+        row["max_abs_err"] = max(row["max_abs_err"], err)
 
     # the tiny level of a 640x480 match (30x40 descriptors), and the coarse
     # levels of 1080p (auto depth) and of 4K at depth 3 with the global
@@ -1807,9 +1854,11 @@ def phase_dossier(dev) -> None:
                           f"{engine} {group}/{name}: EPE {r['epe']}")
                     timing = "" if group == "holdout" else \
                         f"  {r['ms']:.1f} ms (DeviceTimer)"
+                    within = ref[engine][f"{group}/{name}"]["within_1e3"]
                     log(f"dossier {engine} {group}/{name}: EPE "
                         f"{r['epe']:.5f}  jax {r['epe_jax']:.5f}  delta "
-                        f"{r['delta']:+.6f}{timing}")
+                        f"{r['delta']:+.6f}  CPU agreement {within:.3%}"
+                        f"{timing}")
             done = sorted(f"{k.split('/')[0]}/{n}"
                           for k, rep in out["groups"].items()
                           for n in rep["sequences"])

@@ -111,28 +111,128 @@ def bilateral_cost(
     gws: Sequence[float],
     cfg: CostConfig,
     chunk: int,
+    plane_fronto: bool = False,
 ) -> torch.Tensor:
     """sum(w * (c_ad + c_cen)) / max(sum(w), 1e-30) over the (p1, p2) tap
     pairs ``taps`` (packs, in table order; p2 may carry a leading
     candidate dim) with spatial weights ``gws``, the RGB centres
-    ``center1`` and ``center2`` giving the range weights.  Taps sum in
-    partial sums of ``chunk`` taps, as the JAX package's scans do; the
-    weight is its single ``exp(-(dr1^2 + dr2^2)/sigma_r^2) * G(d)``.
-    Kernel A computes the same operations in the same order."""
+    ``center1`` and ``center2`` giving the range weights
+    ``w = exp(-(dr1^2 + dr2^2)/sigma_r^2) * G(d)``.  Taps sum in partial
+    sums of ``chunk`` taps, as the JAX package's scans do, added in chunk
+    order.  Each tap's terms are computed once, in table order.
+
+    The arithmetic is XLA's CPU code for ``eppm_tpu/ops/dense.py::
+    residual_costs`` (kernel A's), read from its optimised HLO and IR and
+    held to the program the pipeline compiles at every call site
+    (``tools/torch_xla_arith.py --sites``); it depends on the call's
+    shape.  The exponent dr1^2 + dr2^2 is one fused multiply-add,
+    fma(dr1, dr1, dr2^2), except with one chunk and more than one
+    candidate: XLA then drops the scan over the chunks and computes dr1^2,
+    the same for every candidate, in a fusion of its own, so the sum is
+    fma(dr2, dr2, dr1^2).  Each chunk is padded to ``chunk`` taps of
+    weight 0, which add exact zeros: ``_window_chunk`` sums a chunk of
+    more than ``WINDOW`` taps, ``_lane_chunk`` a shorter one.  With one
+    chunk the weights join the cost's lanes, except in the fronto table
+    of the plane mode (``plane_fronto``), whose weights XLA sums in a
+    fusion of their own, each pixel's taps in sequence."""
     inv_lam_ad2, inv_lam_cen2, inv_sig_r2 = cost_constants(cfg)
-    cost_sum = weight_sum = part_c = part_w = 0.0
     n = len(gws)
-    for t, ((p1, p2), gw) in enumerate(zip(taps, gws)):
-        dr1 = maxabs3(center1, p1[..., :3])
-        dr2 = maxabs3(center2, p2[..., :3])
-        wgt = ftz(exp_cephes(-(dr1 * dr1 + dr2 * dr2) * inv_sig_r2) * gw)
-        part_c = part_c + wgt * ad_census(p1, p2, inv_lam_ad2, inv_lam_cen2)
-        part_w = part_w + wgt
-        if (t + 1) % chunk == 0 or t + 1 == n:
-            cost_sum = cost_sum + part_c
-            weight_sum = weight_sum + part_w
-            part_c = part_w = 0.0
+    one_chunk = n <= chunk
+    dr1_apart = (one_chunk and center2.dim() > center1.dim()
+                 and center2.shape[0] > 1)
+    pairs = zip(taps, gws)
+    cost_sum = weight_sum = 0.0
+    for c0 in range(0, n, chunk):
+        terms = []
+        for _ in range(min(chunk, n - c0)):
+            (p1, p2), gw = next(pairs)
+            dr1 = maxabs3(center1, p1[..., :3])
+            dr2 = maxabs3(center2, p2[..., :3])
+            if dr1_apart:
+                arg = fma32(dr2, dr2, dr1 * dr1)
+            else:
+                arg = fma32(dr1, dr1, dr2 * dr2)
+            e = exp_cephes(-arg * inv_sig_r2)
+            terms.append((e, gw, ftz(e * gw),
+                          ad_census(p1, p2, inv_lam_ad2, inv_lam_cen2)))
+        if chunk > WINDOW:
+            part_c, part_w = _window_chunk(terms, chunk)
+        else:
+            part_c, part_w = _lane_chunk(terms, chunk,
+                                         one_chunk and not plane_fronto)
+        cost_sum = cost_sum + part_c
+        weight_sum = weight_sum + part_w
     return cost_sum / weight_sum.clamp_min(1e-30)
+
+
+# XLA's CPU reductions: LLVM vectorises a reduction loop in LANES float32
+# lanes (AVX2), and XLA first splits a reduction of more than WINDOW
+# elements into windows of WINDOW (its tree-reduction rewrite).
+LANES = 8
+WINDOW = 32
+
+
+def _lane_tree(lane):
+    """The halving tree that reduces ``LANES`` lanes to one value."""
+    return ((lane[0] + lane[4]) + (lane[2] + lane[6])) + \
+        ((lane[1] + lane[5]) + (lane[3] + lane[7]))
+
+
+def _lane_chunk(terms, chunk: int, weight_lanes: bool):
+    """One chunk's (cost, weight) partial sums from its taps' (e, g, w, E)
+    in table order, as XLA's CPU code sums a chunk padded to ``chunk`` <=
+    ``WINDOW`` taps in one loop.  Of the padded taps, the first ``chunk
+    // LANES * LANES`` go to lane t % LANES (lanes the real taps do not
+    reach stay 0), the lanes meet in ``_lane_tree`` and the rest follow in
+    sequence.  The cost: lane += w * E fused (the first tap's product
+    rounded alone).  The weight, with ``weight_lanes``: the same lanes of
+    w, then fma(e, g, lane); else in sequence, w of the first tap, then
+    fma(e, g, acc).  Kernel A computes the same operations
+    (``csrc/cost.cu``)."""
+    full = chunk // LANES * LANES
+    weight_lanes = weight_lanes and full > 0
+    lane_c, lane_w = [0.0] * LANES, [0.0] * LANES
+    cost = weight = None
+    for t, (e, g, w, term) in enumerate(terms):
+        if t < full:
+            i = t % LANES
+            lane_c[i] = fma32(w, term, lane_c[i])
+            if weight_lanes:
+                lane_w[i] = w if t < LANES else fma32(e, g, lane_w[i])
+        else:
+            cost = fma32(w, term, _lane_tree(lane_c) if cost is None
+                         else cost)
+            if weight_lanes:
+                weight = fma32(e, g, _lane_tree(lane_w) if weight is None
+                               else weight)
+        if not weight_lanes:
+            weight = w if t == 0 else fma32(e, g, weight)
+    if cost is None:
+        cost = _lane_tree(lane_c)
+    if weight is None:
+        weight = _lane_tree(lane_w)
+    return cost, weight
+
+
+def _window_chunk(terms, chunk: int):
+    """One chunk's (cost, weight) partial sums, as XLA's CPU code sums a
+    chunk padded to ``chunk`` > ``WINDOW`` taps: the products w * E and
+    the weights w rounded, the padded chunk split into windows of
+    ``WINDOW`` after half the padding to a whole number of windows (the
+    lesser half) in front, each window summed in sequence, the windows
+    added in order."""
+    n_win = -(-chunk // WINDOW)
+    front = (n_win * WINDOW - chunk) // 2
+    cost = weight = 0.0
+    for s in range(n_win):
+        part_c = part_w = 0.0
+        for _, _, w, term in terms[max(s * WINDOW - front, 0):
+                                   max((s + 1) * WINDOW - front, 0)]:
+            part_c = part_c + w * term
+            part_w = part_w + w
+        cost = cost + part_c
+        weight = weight + part_w
+    return cost, weight
 
 
 def quantize_cost(cost: torch.Tensor) -> torch.Tensor:
@@ -180,9 +280,7 @@ def patch_cost_stack(
     # The JAX form adds the taps to one running sum in an unrolled loop,
     # and XLA's CPU backend fuses its multiply-adds: dr1^2 + dr2^2 into
     # fma(dr1, dr1, dr2^2) and each cost_sum + w * term into fma(w, term,
-    # cost_sum).  (``bilateral_cost``, the residual costs' form, still adds
-    # rounded products in sequence where XLA sums fused ones in vector
-    # lanes; kernel A does the same.)
+    # cost_sum).
     inv_lam_ad2, inv_lam_cen2, inv_sig_r2 = cost_constants(cfg)
     center1, center2 = pack1[..., :3], taps2[..., T, :3]
     cost_sum = weight_sum = torch.zeros(txs.shape, dtype=torch.float32,
@@ -265,8 +363,8 @@ def _chunk_tables(taps1, taps2, sigma_spatial: float, base: int, h: int,
 def _chunk_sums(parts) -> torch.Tensor:
     """sum(w * term) / max(sum(w), 1e-30) from per-chunk (w * term, w)
     stacks (T, ...): the taps of a chunk add in table order into the
-    chunk's partial sums, the partial sums in chunk order — the order of
-    ``bilateral_cost``, so the bits are its."""
+    chunk's partial sums, the partial sums in chunk order, every product
+    rounded."""
     cost_sum = weight_sum = 0.0
     for prods, wgts in parts:
         part_c, part_w = prods[0], wgts[0]
@@ -295,8 +393,7 @@ def _weight_and_ad(center1, center2, p1, p2, gws, inv_sig_r2: float,
                    inv_lam_ad2: float):
     """The range-and-space weights w and the AD terms c_ad of a chunk of
     tap pairs (frame-1 taps p1 (T, 1, H, W, 4), frame-2 taps p2 (T, K, H,
-    W, 4), spatial weights gws (T, 1, 1, 1)), in ``bilateral_cost``'s
-    operations."""
+    W, 4), spatial weights gws (T, 1, 1, 1)), every product rounded."""
     dr1 = maxabs3(center1, p1[..., :3])
     dr2 = maxabs3(center2, p2[..., :3])
     wgt = ftz(exp_cephes(-(dr1 * dr1 + dr2 * dr2) * inv_sig_r2) * gws)
@@ -325,8 +422,8 @@ def patch_cost_offsets(
     tensors: one gather of the frame-2 taps, then the range weights and
     the AD + census terms of all its taps at once (the census term looked
     up in ``census_lut``).  Only the running sums stay a loop, in table
-    order: the result is the bits of the per-tap ``bilateral_cost``, at
-    a few hundred launches a call instead of ~230 a tap."""
+    order: the result is the bits of the same sums taken one tap at a
+    time, at a few hundred launches a call instead of ~230 a tap."""
     (tx, ty), single = _as_fields(tx, ty)
     H, W = tx.shape[-2:]
     H2, W2 = pack2.shape[0], pack2.shape[1]

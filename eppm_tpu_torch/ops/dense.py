@@ -105,14 +105,18 @@ def _cost_from_stack(
     cfg: CostConfig,
     taps2: Sequence[Tuple[int, int]],
     tap_chunk: int = TAP_CHUNK,
+    plane_fronto: bool = False,
 ) -> torch.Tensor:
     """Shared plain cost: ``frames`` is (K, H+2m, W+2m, 4) — candidate k's
     frame-2 region, already offset by its candidate and edge-padded by
     ``m`` >= every |tap| — against pack1 (H, W, 4) -> (K, H, W) on the
     2^-17 grid.  Frame-1 taps follow ``cfg.tap_offsets``, frame-2 taps the
     table ``taps2`` (the same grid, or a plane hypothesis's); the frame-2
-    range-weight centre stays the candidate's own pixel.  Taps sum in
-    partial sums of ``tap_chunk``."""
+    range-weight centre stays the candidate's own pixel.
+
+    Taps sum in partial sums of ``tap_chunk`` in the form XLA's CPU code
+    gives ``eppm_tpu``'s program (``bilateral_cost``); ``plane_fronto``
+    marks the plane mode's fronto table, whose weights XLA sums apart."""
     h, w = pack1.shape[0], pack1.shape[1]
     taps1 = list(cfg.tap_offsets)
     R = _reach(taps1)
@@ -123,7 +127,7 @@ def _cost_from_stack(
     gws = [tap_weight(dy, dx, cfg.sigma_spatial) for (dy, dx) in taps1]
     cost = bilateral_cost(pairs, pack1[..., :3],
                           frames[:, m : m + h, m : m + w, :3], gws, cfg,
-                          chunk=tap_chunk)
+                          chunk=tap_chunk, plane_fronto=plane_fronto)
     return quantize_cost(cost)
 
 
@@ -165,8 +169,9 @@ def residual_costs(
         for (cy, cx) in cand_offsets
     ])
     cost = None
-    for table in tables:
-        c = _cost_from_stack(pack1, frames, m, cfg, table, tap_chunk)
+    for b, table in enumerate(tables):
+        c = _cost_from_stack(pack1, frames, m, cfg, table, tap_chunk,
+                             plane_fronto=use_planes and b == 0)
         cost = c if cost is None else torch.minimum(cost, c)
     return cost
 

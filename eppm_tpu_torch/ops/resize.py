@@ -25,7 +25,8 @@ import torch
 
 from ._util import fma32, inv32, pad_edge
 
-__all__ = ["gaussian_filter", "bilinear_resize", "gaussian_pyramid"]
+__all__ = ["gaussian_filter", "bilinear_resize", "gaussian_pyramid",
+           "pyramid_dims"]
 
 
 def gaussian_filter(
@@ -111,6 +112,16 @@ def bilinear_resize(
         return lerp(r.index_select(1, x0), r.index_select(1, x1), fx)
 
     return lerp(row(r0), row(r1), fy)
+
+
+def pyramid_dims(
+    h: int, w: int, max_depth: int, ratio: float = 0.5
+) -> List[Tuple[int, int]]:
+    """Per-level dims, truncated (bao_basic.h:196-211;
+    ``eppm_tpu/ops/resize.py::pyramid_dims``): ``max(max_depth, 1)``
+    levels of (int(h * ratio^i), int(w * ratio^i))."""
+    depth = max(max_depth, 1)
+    return [(int(h * ratio**i), int(w * ratio**i)) for i in range(depth)]
 
 
 def gaussian_pyramid(

@@ -24,6 +24,7 @@ from eppm_tpu_torch.config import DEFAULT_CONFIG as TC
 from eppm_tpu_torch.ops import cost as tcost
 from eppm_tpu_torch.ops import cuda_cost
 from eppm_tpu_torch.ops import dense as tdense
+from eppm_tpu_torch.ops._util import exp_cephes, ftz
 from eppm_tpu_torch.ops.census import census_transform
 from eppm_tpu_torch.ops.match import _make_mini_cost as t_mini_cost
 
@@ -48,6 +49,28 @@ def _pair(rng, h, w):
         t = torch.from_numpy(img)
         packs.append(tcost.pack_frame(t, census_transform(t)).numpy())
     return packs
+
+
+def sequential_cost(taps, center1, center2, gws, cfg, chunk):
+    """sum(w * (c_ad + c_cen)) / max(sum(w), 1e-30) over the (p1, p2) tap
+    pairs one tap at a time, in the gathered costs' arithmetic: every
+    product rounded, each chunk's taps added in table order, the chunks'
+    partial sums in chunk order (``ops/cost.py::_chunk_sums``)."""
+    inv_lam_ad2, inv_lam_cen2, inv_sig_r2 = tcost.cost_constants(cfg)
+    pairs = list(zip(taps, gws))
+    cost_sum = weight_sum = 0.0
+    for c0 in range(0, len(pairs), chunk):
+        part_c = part_w = 0.0
+        for (p1, p2), gw in pairs[c0 : c0 + chunk]:
+            dr1 = tcost.maxabs3(center1, p1[..., :3])
+            dr2 = tcost.maxabs3(center2, p2[..., :3])
+            wgt = ftz(exp_cephes(-(dr1 * dr1 + dr2 * dr2) * inv_sig_r2) * gw)
+            term = tcost.ad_census(p1, p2, inv_lam_ad2, inv_lam_cen2)
+            part_c = part_c + wgt * term
+            part_w = part_w + wgt
+        cost_sum = cost_sum + part_c
+        weight_sum = weight_sum + part_w
+    return cost_sum / weight_sum.clamp_min(1e-30)
 
 
 def _configs(name):

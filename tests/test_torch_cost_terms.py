@@ -21,7 +21,7 @@ from eppm_tpu_torch.config import DEFAULT_CONFIG as TC
 from eppm_tpu_torch.ops import cost as tcost
 from eppm_tpu_torch.ops import cuda_cost
 from eppm_tpu_torch.ops import dense as tdense
-from eppm_tpu_torch.ops._util import exp_cephes, ftz, shift2d
+from eppm_tpu_torch.ops._util import exp_cephes, fma32, ftz, shift2d
 from eppm_tpu_torch.ops.census import census_transform
 
 # The suite runs several test processes per host: one torch thread each
@@ -132,35 +132,73 @@ def reassemble(p1, frames, cands, cfg, tables):
     """Kernel A's second pass written in torch: per (candidate, table,
     tap) the range weight of the frame-2 tap at clamp(p + c + e), the
     term looked up through the plan's map-index table, summed in the
-    plain version's chunks, quantized, least over the tables."""
+    kernel's loops (each chunk's first taps in 8 lanes, a halving tree,
+    the rest in sequence), quantized, least over the tables."""
     h, w = p1.shape[0], p1.shape[1]
     taps = list(cfg.tap_offsets)
     plan = cuda_cost.cost_plan(cands, taps, tables)
     R = tdense._reach(cfg.tap_offsets)
     terms = tdense.cost_terms(p1, frames, plan.maps, R, cfg)
     inv_sig_r2 = tcost.cost_constants(cfg)[2]
+    chunk, lanes = tcost.TAP_CHUNK, 8
+    full = chunk // lanes * lanes
+
+    def tree(v):
+        return (((v[0] + v[4]) + (v[2] + v[6]))
+                + ((v[1] + v[5]) + (v[3] + v[7])))
+
     best = None
     for b in range(len(tables)):
         costs = []
         for k, (cy, cx, f) in enumerate(cands):
             c2 = shift2d(frames[f], cy, cx)[..., :3]
-            cost_sum = weight_sum = part_c = part_w = 0.0
-            for t, (dy, dx) in enumerate(taps):
+            one_chunk = len(taps) <= chunk
+            dr1_apart = one_chunk and len(cands) > 1
+            w_lanes = one_chunk and full > 0 and not (len(tables) > 1
+                                                      and b == 0)
+
+            def tap(t):
+                """(e, g, w, term) of tap t, as the kernel's lambda."""
+                dy, dx = taps[t]
                 ey, ex = (int(v) for v in plan.taps2[b, t])
                 tap1 = shift2d(p1, dy, dx)[..., :3]
                 tap2 = shift2d(frames[f], cy + ey, cx + ex)[..., :3]
                 dr1 = tcost.maxabs3(p1[..., :3], tap1)
                 dr2 = tcost.maxabs3(c2, tap2)
-                wgt = ftz(exp_cephes(-(dr1 * dr1 + dr2 * dr2) * inv_sig_r2)
-                          * tcost.tap_weight(dy, dx, cfg.sigma_spatial))
-                e = terms[plan.map_of[k, b, t], R + dy : R + dy + h,
-                          R + dx : R + dx + w]
-                part_c = part_c + wgt * e
-                part_w = part_w + wgt
-                if (t + 1) % tcost.TAP_CHUNK == 0 or t + 1 == len(taps):
-                    cost_sum = cost_sum + part_c
-                    weight_sum = weight_sum + part_w
-                    part_c = part_w = 0.0
+                arg = (fma32(dr2, dr2, dr1 * dr1) if dr1_apart
+                       else fma32(dr1, dr1, dr2 * dr2))
+                e = exp_cephes(-arg * inv_sig_r2)
+                g = tcost.tap_weight(dy, dx, cfg.sigma_spatial)
+                term = terms[plan.map_of[k, b, t], R + dy : R + dy + h,
+                             R + dx : R + dx + w]
+                return e, g, ftz(e * g), term
+
+            cost_sum = weight_sum = 0.0
+            for c0 in range(0, len(taps), chunk):
+                m = min(chunk, len(taps) - c0)
+                in_lanes = min(full, m)
+                lane_c, lane_w = [0.0] * lanes, [0.0] * lanes
+                part_w = 0.0
+                for g0 in range(0, in_lanes, lanes):
+                    for i in range(min(lanes, in_lanes - g0)):
+                        e, g, wgt, term = tap(c0 + g0 + i)
+                        lane_c[i] = fma32(wgt, term, lane_c[i])
+                        if w_lanes:
+                            lane_w[i] = (wgt if g0 == 0
+                                         else fma32(e, g, lane_w[i]))
+                        else:
+                            part_w = (wgt if g0 + i == 0
+                                      else fma32(e, g, part_w))
+                part_c = tree(lane_c)
+                if w_lanes:
+                    part_w = tree(lane_w)
+                for t in range(c0 + in_lanes, c0 + m):
+                    e, g, wgt, term = tap(t)
+                    part_c = fma32(wgt, term, part_c)
+                    part_w = (fma32(e, g, part_w) if w_lanes or t > c0
+                              else wgt)
+                cost_sum = cost_sum + part_c
+                weight_sum = weight_sum + part_w
             costs.append(tcost.quantize_cost(
                 cost_sum / weight_sum.clamp_min(1e-30)))
         cost = torch.stack(costs)

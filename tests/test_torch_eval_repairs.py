@@ -37,6 +37,7 @@ from eppm_tpu_torch.config import DEFAULT_CONFIG as TC
 from eppm_tpu_torch.ops import census as tcensus
 from eppm_tpu_torch.ops import cost as tcost
 from eppm_tpu_torch.ops._util import pad_edge
+from test_torch_cost import sequential_cost
 
 # The suite runs several test processes per host: one torch thread each
 # keeps them from oversubscribing the cores.
@@ -128,8 +129,8 @@ def unfused_stack_cost(pack1, stack2, txs, tys, cfg, offs):
     pairs = ((pad1[R + i : R + i + H, R + j : R + j + W], taps2[..., t, :])
              for t, (i, j) in enumerate(taps1))
     gws = [tcost.tap_weight(i, j, cfg.sigma_spatial) for (i, j) in taps1]
-    return tcost.bilateral_cost(pairs, pack1[..., :3], taps2[..., T, :3],
-                                gws, cfg, chunk=len(gws))
+    return sequential_cost(pairs, pack1[..., :3], taps2[..., T, :3], gws,
+                           cfg, len(gws))
 
 
 @pytest.mark.parametrize("crop", [(0, 0, 96, 128), (0, 40, 64, 96)])

@@ -21,7 +21,7 @@ from eppm_tpu.ops import cost as jcost
 from eppm_tpu_torch.config import DEFAULT_CONFIG as TC
 from eppm_tpu_torch.ops import cost as tcost
 from eppm_tpu_torch.ops._util import pad_edge
-from test_torch_cost import T, _pair
+from test_torch_cost import T, _pair, sequential_cost
 
 # The suite runs several test processes per host: one torch thread each
 # keeps them from oversubscribing the cores.
@@ -29,7 +29,7 @@ torch.set_num_threads(1)
 
 
 def per_tap_offsets(pack1, pack2, tx, ty, cfg, offsets2):
-    """The gathered cost one tap at a time through ``bilateral_cost``:
+    """The gathered cost one tap at a time through ``sequential_cost``:
     ``patch_cost_offsets`` as it was before its taps were chunked, ~230
     torch ops a tap."""
     H, W = tx.shape[-2:]
@@ -47,8 +47,8 @@ def per_tap_offsets(pack1, pack2, tx, ty, cfg, offsets2):
     pairs = ((pad1[R + i1 : R + i1 + H, R + j1 : R + j1 + W], at2(i2, j2))
              for (i1, j1), (i2, j2) in zip(taps1, offsets2))
     gws = [tcost.tap_weight(i1, j1, cfg.sigma_spatial) for (i1, j1) in taps1]
-    return tcost.bilateral_cost(pairs, pack1[..., :3], at2(0, 0)[..., :3],
-                                gws, cfg, chunk=tcost.TAP_CHUNK)
+    return sequential_cost(pairs, pack1[..., :3], at2(0, 0)[..., :3], gws,
+                           cfg, tcost.TAP_CHUNK)
 
 
 def _targets(rng, shape, h, w, reach=3):

@@ -28,7 +28,7 @@ from eppm_tpu_torch.ops import cuda_cost
 from eppm_tpu_torch.ops import dense as tdense
 from eppm_tpu_torch.ops._util import pad_edge
 from eppm_tpu_torch.pipeline import compute_flow
-from test_torch_cost import T, _assert_costs_close, _pair
+from test_torch_cost import T, _assert_costs_close, _pair, sequential_cost
 from test_torch_pipeline import shifted_pair
 
 # The suite runs several test processes per host: one torch thread each
@@ -40,7 +40,7 @@ CHUNK = 49
 
 def _per_tap(pack1, pack2, tx, ty, cfg, chunk):
     """The fronto gathered cost one tap at a time through
-    ``bilateral_cost`` in partial sums of ``chunk``."""
+    ``sequential_cost`` in partial sums of ``chunk``."""
     H, W = tx.shape
     H2, W2 = pack2.shape[0], pack2.shape[1]
     R = cfg.patch_radius
@@ -56,8 +56,8 @@ def _per_tap(pack1, pack2, tx, ty, cfg, chunk):
     pairs = ((pad1[R + i : R + i + H, R + j : R + j + W], at2(i, j))
              for i, j in taps)
     gws = [tcost.tap_weight(i, j, cfg.sigma_spatial) for i, j in taps]
-    return tcost.bilateral_cost(pairs, pack1[..., :3], at2(0, 0)[..., :3],
-                                gws, cfg, chunk=chunk)
+    return sequential_cost(pairs, pack1[..., :3], at2(0, 0)[..., :3], gws,
+                           cfg, chunk)
 
 
 def test_gathered_cost_chunk_matches_jax(rng):

@@ -17,25 +17,43 @@ fed to both packages) this prints:
 3. the dense refine's residual cost at level 1 (pass 1 on the upsampled
    coarse flow of ``compute_flow_jit``'s chain, pass 2 on its median
    after pass 1): quantized costs differing from the JAX package's
-   ``residual_costs`` jitted alone, for the port's plain version (kernel
-   A's arithmetic) and for ``xla_bilateral_cost`` below, XLA's
-   arithmetic as its optimised IR shows it;
+   ``residual_costs`` jitted alone, for the port's plain version
+   (``ops/cost.py::bilateral_cost``, kernel A's arithmetic) and for the
+   sequential sums kernel A had before (``sequential_cost``: each
+   chunk's rounded products added in order);
 4. the global sweep of the coarse match: the targets that differ from
    the JAX package's on the same descriptors, with the exact scores x4096
    of both targets (``eppm_tpu`` sums in float32, the port exactly).
 
-``--flow`` also runs the port's whole pipeline with ``xla_bilateral_cost``
-in place of the plain residual cost's sums and holds its flow to
+``--flow`` also runs the port's whole pipeline and holds its flow to
 ``compute_flow_jit``'s (the contract's share within 1e-3).
 
-  python tools/torch_xla_arith.py evalset/holdout/disk_layered [--flow]
+``--sites`` instead records every residual cost of ``compute_flow_jit``
+on the case (``--set KEY=VALUE`` overrides the config, e.g.
+``cost_tap_chunk=49`` or ``dense_pass2_planes=True``): each call's
+inputs and quantized costs, as the program the pipeline compiles computes
+them (a ``jax.debug.callback`` beside ``dense.residual_costs``), labelled
+by the call site (the refine passes, ``rescore``, ``rescore_multi``'s
+``lax.map``, the descent chain, the polish).  Per site it prints how many
+quantized costs of the port's plain version differ from the program's,
+how many the sequential sums' would, and how many the JAX function
+jitted alone gives differently from the program.
 
-XLA's arithmetic depends on the program it compiles: a probe jits the
-JAX function alone, as the pipeline's staged programs do.
+  python tools/torch_xla_arith.py evalset/holdout/disk_layered [--flow]
+  python tools/torch_xla_arith.py evalset/holdout/disk_layered --sites \
+      [--set cost_tap_chunk=49]
+
+XLA's arithmetic depends on the program it compiles (``--sites`` shows
+where the function jitted alone parts from the pipeline's program); dump
+a program's optimised HLO and IR with ``XLA_FLAGS=--xla_dump_to=DIR`` to
+read the form it takes.
 """
 
 import argparse
+import contextlib
 import dataclasses
+import functools
+import inspect
 import os
 import sys
 
@@ -49,64 +67,47 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
-from eppm_tpu_torch.ops._util import (exp_cephes, fma32, ftz,  # noqa: E402
-                                      pad_edge)
-from eppm_tpu_torch.ops.cost import (ad_census, cost_constants,  # noqa: E402
-                                     maxabs3, quantize_cost)
-
-LANES = 8
+from eppm_tpu_torch.ops._util import pad_edge  # noqa: E402
+from eppm_tpu_torch.ops.cost import quantize_cost  # noqa: E402
 
 
-def _lane_sum(idx, first, acc):
-    """XLA's vectorised sum over ``idx``: lane i takes i, i+8, ... as
-    ``acc(t, lane)``, then the halving tree, then the remainder."""
-    full = len(idx) // LANES * LANES
-    if full == 0:
-        r = first(idx[0])
-        for t in idx[1:]:
-            r = acc(t, r)
-        return r
-    s = [first(idx[i]) for i in range(LANES)]
-    for g in range(LANES, full, LANES):
-        s = [acc(idx[g + i], s[i]) for i in range(LANES)]
-    a = [s[i] + s[i + 4] for i in range(4)]
-    r = (a[0] + a[2]) + (a[1] + a[3])
-    for t in idx[full:]:
-        r = acc(t, r)
-    return r
+def sequential_cost(taps, center1, center2, gws, cfg, chunk,
+                    plane_fronto=False):
+    """``ops/cost.py::bilateral_cost`` as it was before it took XLA's
+    arithmetic: every product rounded, each chunk's taps added in table
+    order, the chunks' partial sums in chunk order."""
+    from eppm_tpu_torch.ops import cost as tcost
+    from eppm_tpu_torch.ops._util import exp_cephes, ftz
 
-
-def xla_bilateral_cost(taps, center1, center2, gws, cfg, chunk):
-    """``ops/cost.py::bilateral_cost`` in XLA's CPU arithmetic for the JAX
-    package's ``dense.residual_costs``: the weight's exp of fma(dr1, dr1,
-    dr2^2); per chunk the cost sum in 8 lanes of fma(w, E, lane); the
-    weight sum in 8 lanes of fma(e, g, lane) when the cost has one chunk,
-    else in sequence, fma(e, g, acc)."""
-    inv_lam_ad2, inv_lam_cen2, inv_sig_r2 = cost_constants(cfg)
-    e_, w_, t_ = [], [], []
-    for (p1, p2), gw in zip(taps, gws):
-        dr2 = maxabs3(center2, p2[..., :3])
-        dr1 = maxabs3(center1, p1[..., :3]).expand(dr2.shape)
-        e = exp_cephes(-fma32(dr1, dr1, dr2 * dr2) * inv_sig_r2)
-        e_.append(e)
-        w_.append(ftz(e * gw))
-        t_.append(ad_census(p1, p2, inv_lam_ad2, inv_lam_cen2))
-    n = len(gws)
+    inv_lam_ad2, inv_lam_cen2, inv_sig_r2 = tcost.cost_constants(cfg)
+    pairs = list(zip(taps, gws))
     cost_sum = weight_sum = 0.0
-    for c0 in range(0, n, chunk):
-        idx = list(range(c0, min(c0 + chunk, n)))
-        cost_sum = cost_sum + _lane_sum(
-            idx, lambda t: w_[t] * t_[t],
-            lambda t, r: fma32(w_[t], t_[t], r))
-        if n <= chunk:
-            ws = _lane_sum(idx, lambda t: w_[t],
-                           lambda t, r: fma32(e_[t], gws[t], r))
-        else:
-            ws = w_[idx[0]]
-            for t in idx[1:]:
-                ws = fma32(e_[t], gws[t], ws)
-        weight_sum = weight_sum + ws
+    for c0 in range(0, len(pairs), chunk):
+        part_c = part_w = 0.0
+        for (p1, p2), gw in pairs[c0 : c0 + chunk]:
+            dr1 = tcost.maxabs3(center1, p1[..., :3])
+            dr2 = tcost.maxabs3(center2, p2[..., :3])
+            wgt = ftz(exp_cephes(-(dr1 * dr1 + dr2 * dr2) * inv_sig_r2) * gw)
+            term = tcost.ad_census(p1, p2, inv_lam_ad2, inv_lam_cen2)
+            part_c = part_c + wgt * term
+            part_w = part_w + wgt
+        cost_sum = cost_sum + part_c
+        weight_sum = weight_sum + part_w
     return cost_sum / weight_sum.clamp_min(1e-30)
+
+
+@contextlib.contextmanager
+def sequential_sums():
+    """The port's dense residual cost in the sequential sums kernel A had
+    before it took XLA's arithmetic (``sequential_cost``)."""
+    from eppm_tpu_torch.ops import dense as tdense
+
+    orig = tdense.bilateral_cost
+    tdense.bilateral_cost = sequential_cost
+    try:
+        yield
+    finally:
+        tdense.bilateral_cost = orig
 
 
 def _unfused_census(lum):
@@ -120,12 +121,127 @@ def _unfused_census(lum):
     return out
 
 
+# the callers of dense.residual_costs in eppm_tpu's pipeline, innermost
+# first (rescore_multi's lax.map is recorded whole, beside the port's
+# multiwarp call)
+SITES = ("dense_refine_flow", "rescore", "_descend_chain",
+         "_polish_direction")
+
+
+def sites(case, overrides):
+    """Every residual cost of ``compute_flow_jit`` on the case, in the
+    program the pipeline compiles, against the port's plain version."""
+    from eppm_tpu import pipeline as jp
+    from eppm_tpu.cli import load_image
+    from eppm_tpu.config import DEFAULT_CONFIG as JC
+    from eppm_tpu.ops import dense as jdense
+    from eppm_tpu.ops import match as jmatch
+    from eppm_tpu.ops import pallas_cost as jpc
+    from eppm_tpu_torch.config import CostConfig
+    from eppm_tpu_torch.ops import dense as tdense
+    from eppm_tpu_torch.ops import match as tmatch
+
+    cfg = JC
+    for kv in overrides:
+        key, value = kv.split("=", 1)
+        cfg = dataclasses.replace(cfg, **{key: eval(value)})
+    records = []
+    in_multi = []
+
+    def record(meta, *arrays):
+        jax.debug.callback(lambda *a: records.append(
+            (meta, [np.array(x) for x in a])), *arrays)
+
+    def residual_costs(pack1, warped2, cand_offsets, cost_cfg,
+                       use_planes=True, tap_chunk=25):
+        out = jdense.residual_costs(pack1, warped2, cand_offsets, cost_cfg,
+                                    use_planes, tap_chunk)
+        if not in_multi:
+            names = [f.function for f in inspect.stack()[1:12]]
+            site = next((s for s in SITES if s in names), "?")
+            record((site, tuple(cand_offsets), cost_cfg, use_planes,
+                    tap_chunk), pack1, warped2, out)
+        return out
+
+    multi = jmatch.rescore_multi
+
+    def rescore_multi(pack1, pack2, gys, gxs, cost_cfg, tap_chunk=25):
+        in_multi.append(True)
+        try:
+            out = multi(pack1, pack2, gys, gxs, cost_cfg, tap_chunk)
+        finally:
+            in_multi.pop()
+        record(("rescore_multi", None, cost_cfg, False, tap_chunk),
+               pack1, pack2, gys, gxs, out)
+        return out
+
+    originals = (jpc.residual_costs_auto, jmatch.rescore_multi)
+    jpc.residual_costs_auto = jmatch.residual_costs_auto = residual_costs
+    jmatch.rescore_multi = rescore_multi
+    img1 = load_image(os.path.join(case, "frame10.ppm"))
+    img2 = load_image(os.path.join(case, "frame11.ppm"))
+    try:
+        jp.compute_flow_jit(jnp.asarray(img1), jnp.asarray(img2), None,
+                            cfg).block_until_ready()
+        jax.effects_barrier()  # every callback has run
+    finally:
+        jpc.residual_costs_auto = jmatch.residual_costs_auto = originals[0]
+        jmatch.rescore_multi = originals[1]
+    print(f"{len(records)} residual-cost calls of compute_flow_jit on "
+          f"{case} ({overrides or 'the default config'}): quantized costs "
+          "differing from the program's (the port / sequential sums / "
+          "the JAX function jitted alone)")
+    counts, alone = {}, {}
+    for (site, cands, jcfg, planes, chunk), arrays in records:
+        tcfg = CostConfig(**dataclasses.asdict(jcfg))
+        want = arrays[-1]
+        if site == "rescore_multi":
+            def port():
+                return tmatch.rescore_multi(
+                    *[torch.from_numpy(a) for a in arrays[:4]], tcfg,
+                    chunk).numpy()
+            fn = functools.partial(multi, cost_cfg=jcfg, tap_chunk=chunk)
+        else:
+            def port():
+                return tdense.residual_costs(
+                    *[torch.from_numpy(a) for a in arrays[:2]], cands, tcfg,
+                    planes, chunk).numpy()
+            fn = functools.partial(jdense.residual_costs,
+                                   cand_offsets=cands, cfg=jcfg,
+                                   use_planes=planes, tap_chunk=chunk)
+        key = (site, cands, jcfg, planes, chunk)
+        if key not in alone:
+            alone[key] = jax.jit(fn)
+        with sequential_sums():
+            seq = port()
+        got = (port(), seq, np.asarray(alone[key](*arrays[:-1])))
+        label = (f"{site} {want.shape[-2]}x{want.shape[-1]} K="
+                 f"{want.shape[0]} taps={len(jcfg.tap_offsets)} chunk="
+                 f"{chunk}{' planes' if planes else ''}")
+        c = counts.setdefault(label, [0, 0, 0, 0, 0])
+        c[0] += 1
+        c[4] += want.size
+        for i, g in enumerate(got):
+            c[i + 1] += int((g != want).sum())
+    for label, (n, port_d, seq_d, alone_d, size) in counts.items():
+        print(f"   {label}: {n} calls, {port_d} / {seq_d} / {alone_d} of "
+              f"{size}")
+    return 0
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("case", help="directory with frame10.ppm, frame11.ppm")
     p.add_argument("--flow", action="store_true",
-                   help="the whole flow with XLA's residual-cost arithmetic")
+                   help="the port's whole flow against compute_flow_jit's")
+    p.add_argument("--sites", action="store_true",
+                   help="the residual costs of every call site of "
+                   "compute_flow_jit's program against the port's")
+    p.add_argument("--set", action="append", default=[],
+                   metavar="KEY=VALUE", help="config override for --sites")
     args = p.parse_args(argv)
+    if args.sites:
+        return sites(args.case, args.set)
 
     from eppm_tpu import pipeline as jp
     from eppm_tpu.cli import load_image
@@ -189,8 +305,8 @@ def main(argv=None):
              for t, (i, j) in enumerate(tcfg.tap_offsets)]
     gws = [tcost.tap_weight(i, j, tcfg.sigma_spatial)
            for (i, j) in tcfg.tap_offsets]
-    old = tcost.bilateral_cost(pairs, pk1[..., :3], taps2[..., -1, :3], gws,
-                               tcfg, chunk=len(gws)).numpy()
+    old = sequential_cost(pairs, pk1[..., :3], taps2[..., -1, :3], gws,
+                          tcfg, len(gws)).numpy()
     def q(a):
         return quantize_cost(torch.from_numpy(np.array(a))).numpy()
 
@@ -212,7 +328,7 @@ def main(argv=None):
     med = tdense.median3_flow(T(pass1))
     chunk = TC.cost_tap_chunk
     print(f"3. residual costs at level {lvl} ({oh}x{ow}): quantized costs "
-          "differing from eppm_tpu's (port / XLA's arithmetic)")
+          "differing from eppm_tpu's (the port / sequential sums)")
     for name, flow, jcf, tcf, shape in (
             ("pass 1", up, JC.cost, TC.cost, TC.dense_cand_shape),
             ("pass 2", med, JC.pass2_cost, TC.pass2_cost,
@@ -224,15 +340,11 @@ def main(argv=None):
             a, b, cands, jcf, False, chunk))(jp1[lvl], warped.numpy()))
         port = tdense.residual_costs(T(jp1[lvl]), warped, cands, tcf,
                                      False, chunk).numpy()
-        orig = tcost.bilateral_cost
-        tdense.bilateral_cost = xla_bilateral_cost
-        try:
-            xla = tdense.residual_costs(T(jp1[lvl]), warped, cands, tcf,
+        with sequential_sums():
+            seq = tdense.residual_costs(T(jp1[lvl]), warped, cands, tcf,
                                         False, chunk).numpy()
-        finally:
-            tdense.bilateral_cost = orig
         print(f"   {name} ({len(tcf.tap_offsets)} taps, chunk {chunk}): "
-              f"{(port != want).sum()} / {(xla != want).sum()} of "
+              f"{(port != want).sum()} / {(seq != want).sum()} of "
               f"{want.size}")
 
     # 4. the global sweep of the coarse match, on the same descriptors
@@ -269,16 +381,11 @@ def main(argv=None):
     if args.flow:
         one = np.asarray(jp.compute_flow_jit(jnp.asarray(img1),
                                              jnp.asarray(img2), None, JC))
-        orig = tdense.bilateral_cost
-        tdense.bilateral_cost = xla_bilateral_cost
-        try:
-            flow = tp.compute_flow(T(img1), T(img2), TC).numpy()
-        finally:
-            tdense.bilateral_cost = orig
+        flow = tp.compute_flow(T(img1), T(img2), TC).numpy()
         d = np.abs(flow.astype(np.float64) - one).max(axis=-1)
-        print(f"5. the port's flow with XLA's residual-cost arithmetic vs "
-              f"compute_flow_jit: {(d < 1e-3).mean():.4%} within 1e-3, "
-              f"mean {d.mean():.3e}, max {d.max():.4g}")
+        print(f"5. the port's flow vs compute_flow_jit: "
+              f"{(d < 1e-3).mean():.4%} within 1e-3, mean {d.mean():.3e}, "
+              f"max {d.max():.4g}")
     return 0
 
 
