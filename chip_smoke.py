@@ -32,7 +32,10 @@ final line is not printed):
    products alone as the library yardstick;
 4. end to end, one path after another, each with every launch count set
    to 0 just before it and read just after, and each of its kernels
-   launched at least once, and the share of holes in each of kernel C's
+   launched at least once (``EPPMFlow`` and the command line go through
+   ``compute_flow_jit``: a pair's first call captures its CUDA graph, the
+   timed calls replay it, and each replay adds the launches its capture
+   recorded), and the share of holes in each of kernel C's
    polish calls (then, outside the counted run, one 1080p pair of the
    default path under ``torch.profiler``: each hand kernel's device time
    and launches per pair, kernel C's two kernels summed):
@@ -116,7 +119,26 @@ final line is not printed):
    beside the share of pixels whose CPU flow agrees with the JAX
    package's within 1e-3 (the reference's), its ms by ``DeviceTimer``,
    the engine's kernels launched (the counts
-   zeroed before it), and the launches per pair at each group's shape.
+   zeroed before it), and the launches per pair at each group's shape
+   (a replay's);
+7. graph against eager: ``compute_flow_jit`` (one CUDA graph per shape
+   and configuration, ``eppm_tpu_torch/graphs.py``), its cache emptied
+   first, against the eager ``compute_flow`` on the card: under
+   ``DEFAULT_CONFIG`` at 640x480 and 1080p, both plane flags,
+   ``refine_impl="gather"``, ``refine.blf_sigma_spatial=3.0``,
+   ``refine.wmf_fill_first=False``, ``fine_level_wmf=True``,
+   ``subpixel_refine``, ``dense_subpixel_fit``, the temporal warm pair,
+   and PatchMatch on its default key and on a given key: the graph's
+   capture and first replay, an eager call under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no op synchronises with
+   the host), a second replay, each replay ``torch.equal`` to the eager
+   flow, with the warm-up, capture and
+   instantiation seconds and the device memory allocated at most; then
+   the median wall of 10 replays against the median of 5 eager calls at
+   640x480 and 1080p, default and PatchMatch, and one replay of each at
+   1080p under ``torch.profiler`` (device events, device busy as a share
+   of the replayed wall, each hand kernel's events against the launches
+   the replay added).
 
 Each phase logs its seconds.  The line before the last is one JSON object
 with a row per kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -1511,7 +1533,8 @@ def sharded_cases(dev) -> dict:
 def phase_end_to_end(dev) -> dict:
     log("== phase 4: end to end (synthetic pairs), one path at a time")
     from eppm_tpu_torch.config import DEFAULT_CONFIG as cfg
-    from eppm_tpu_torch.pipeline import EPPMFlow, compute_flow
+    from eppm_tpu_torch.graphs import GRAPHS
+    from eppm_tpu_torch.pipeline import EPPMFlow, compute_flow_jit
 
     cases = [  # (h, w, dx, dy, seed): small and large translations; the
         # large 1080p one (-70, 44) runs on the temporal path's cold pairs
@@ -1582,7 +1605,7 @@ def phase_end_to_end(dev) -> dict:
     log("-- fine-level WMF: fine_level_wmf=True")
 
     def fine(img1, img2):
-        return compute_flow(img1, img2, cfg, fine_level_wmf=True)
+        return compute_flow_jit(img1, img2, cfg=cfg, fine_level_wmf=True)
 
     # kernel C: the coarse polish, then one iteration a fine level (2 at
     # 640x480, 3 at 1080p)
@@ -1635,6 +1658,8 @@ def phase_end_to_end(dev) -> dict:
                   f"{name} launched on the {path} path")
     log("-- sharded: compute_flow_sharded on meshes of this card")
     launches.update(sharded_cases(dev))
+    log(f"CUDA graphs of phase 4: {GRAPHS.captures} captured, "
+        f"{GRAPHS.evictions} evicted (at most {GRAPHS.capacity} kept)")
     return launches
 
 
@@ -1838,6 +1863,8 @@ def phase_dossier(dev) -> None:
                 first = [c for c in cases if c.startswith(group + "/")][:1]
                 if not first:
                     continue
+                eval_report.run(root, [engine], dev, first)
+                # the first call captured the shape's graph: count a replay
                 before = {n: c.launches for n, c in counters().items()}
                 eval_report.run(root, [engine], dev, first)
                 per = {n: c.launches - before[n] for n, c in
@@ -1866,6 +1893,165 @@ def phase_dossier(dev) -> None:
             check(not out["misses"],
                   f"EPE more than {eval_report.TOLERANCE} from eppm_tpu's: "
                   f"{out['misses']}")
+
+
+def graph_label(key) -> str:
+    """A graph key of ``graphs.graph_key`` in a few words."""
+    _, (shape, dtype), _, gcfg, fine, init, given = key
+    return (f"{shape[1]}x{shape[0]} {str(dtype).replace('torch.', '')} "
+            f"{gcfg.match_engine}{' fine_level_wmf' if fine else ''}"
+            f"{' init_flow' if init else ''}{' key' if given else ''}")
+
+
+def log_capture(entry) -> None:
+    log(f"graph {graph_label(entry.key)}: warm-up {entry.warmup_s:.3f} s, "
+        f"capture {entry.capture_s:.3f} s, instantiation "
+        f"{entry.instantiate_s:.3f} s; device memory allocated at most "
+        f"{entry.max_allocated / 2**30:.3f} GiB ({entry.pair_bytes / 2**30:.3f}"
+        f" GiB above what was allocated before); launches a replay "
+        f"{ {k.symbol: n for k, n in entry.launches.items()} }")
+
+
+def phase_graphs(dev) -> None:
+    """``compute_flow_jit`` (one CUDA graph per shape and configuration,
+    ``eppm_tpu_torch/graphs.py``) against the eager ``compute_flow``, the
+    cache emptied first: for each configuration the graph's capture (its
+    warm-up call makes the tables) and first replay, an eager call under
+    ``torch.cuda.set_sync_debug_mode("error")`` (any op that synchronises
+    with the card raises), and a second replay, both replays
+    ``torch.equal`` to the eager flow; the capture's seconds and device
+    memory logged.
+    Then the walls: the median of 10 replays against the median of 5
+    eager calls (host clock, ending in a synchronize) at 640x480 and
+    1080p, default and PatchMatch, the replays identical to the eager
+    flow; and one replay at 1080p of each under ``torch.profiler``: its
+    device events, device busy as a share of the replayed wall, and each
+    hand kernel's events against the launches the replay added."""
+    import statistics
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from eppm_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from eppm_tpu_torch.graphs import GRAPHS, graph_key
+    from eppm_tpu_torch.ops.prng import prng_key
+    from eppm_tpu_torch.pipeline import compute_flow, compute_flow_jit
+
+    log("== phase 7: graph against eager (compute_flow_jit)")
+    GRAPHS.clear()
+    torch.cuda.empty_cache()
+    rcfg = cfg.refine
+
+    def pair(h, w, dx, dy, seed):
+        return [torch.from_numpy(f).to(dev)
+                for f in shifted_pair(h, w, dx, dy, seed)]
+
+    small = pair(480, 640, 3, -2, SEED + 70)
+    large = pair(1080, 1920, 5, 3, SEED + 71)
+    halves = [torch.from_numpy(f).to(dev)
+              for f in half_pixel_pair(480, 640, 7, -3, SEED + 72)]
+    warm = compute_flow(*small)
+    pm = dataclasses.replace(cfg, match_engine="patchmatch")
+    cases = [  # (label, frames, kwargs of compute_flow_jit); the last
+        # ones' graphs stay cached for the walls below
+        ("both plane flags", small,
+         dict(cfg=dataclasses.replace(cfg, **PLANES_CFG))),
+        ("refine_impl=gather", small,
+         dict(cfg=dataclasses.replace(cfg, refine_impl="gather"))),
+        ("refine.blf_sigma_spatial=3.0", small, dict(cfg=dataclasses.replace(
+            cfg, refine=dataclasses.replace(rcfg, blf_sigma_spatial=3.0)))),
+        ("refine.wmf_fill_first=False", small, dict(cfg=dataclasses.replace(
+            cfg, refine=dataclasses.replace(rcfg, wmf_fill_first=False)))),
+        ("fine_level_wmf=True", small, dict(cfg=cfg, fine_level_wmf=True)),
+        ("subpixel_refine", halves,
+         dict(cfg=dataclasses.replace(cfg, subpixel_refine=True))),
+        ("dense_subpixel_fit", halves,
+         dict(cfg=dataclasses.replace(cfg, dense_subpixel_fit=True))),
+        ("temporal warm pair", small, dict(cfg=cfg, init_flow=warm)),
+        ("patchmatch, a given key", small,
+         dict(cfg=pm, key=prng_key(cfg.seed + 1, dev))),
+        ("patchmatch, its default key", small, dict(cfg=pm)),
+        ("default 640x480", small, dict(cfg=cfg)),
+        ("default 1080p", large, dict(cfg=cfg)),
+    ]
+    for label, (img1, img2), kw in cases:
+        # the capture's warm-up call makes the tables, so that the eager
+        # call after it copies nothing from the host
+        first = compute_flow_jit(img1, img2, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            want = compute_flow(img1, img2, kw["cfg"],
+                                kw.get("fine_level_wmf", False),
+                                kw.get("init_flow"), key=kw.get("key"))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        again = compute_flow_jit(img1, img2, **kw)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(first, want)) and bool(torch.equal(again, want))
+        log(f"{label}: the eager pair ran no synchronising op; replays "
+            f"{'identical to' if same else 'DIFFER from'} the eager flow")
+        check(same, f"{label}: the replayed flow differs from the eager one")
+        log_capture(GRAPHS.entries[graph_key(
+            img1, img2, kw["cfg"], kw.get("fine_level_wmf", False),
+            kw.get("init_flow"), kw.get("key"))])
+
+    def wall_ms(fn) -> float:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    name = torch.cuda.get_device_name(dev)
+    for label, (img1, img2), pcfg in (
+            ("default 640x480", small, cfg), ("default 1080p", large, cfg),
+            ("patchmatch 640x480", small, pm),
+            ("patchmatch 1080p", large, pm)):
+        want = compute_flow(img1, img2, pcfg)
+        got = compute_flow_jit(img1, img2, cfg=pcfg)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(got, want)),
+              f"{label}: the replayed flow differs from the eager one")
+        eager = [wall_ms(lambda: compute_flow(img1, img2, pcfg))
+                 for _ in range(5)]
+        replay = [wall_ms(lambda: compute_flow_jit(img1, img2, cfg=pcfg))
+                  for _ in range(10)]
+        e_ms, r_ms = statistics.median(eager), statistics.median(replay)
+        log(f"wall {label} [synthetic] ({name}): replay median {r_ms:.3f} ms "
+            f"(10: {min(replay):.3f}-{max(replay):.3f}) against eager median "
+            f"{e_ms:.3f} ms (5: {min(eager):.3f}-{max(eager):.3f}), "
+            f"{e_ms / r_ms:.2f}x; replays identical to the eager flow")
+        if img1.shape[0] != 1080:
+            continue
+        entry = GRAPHS.entries[graph_key(img1, img2, pcfg, False, None, None)]
+        log_capture(entry)
+        before = {n: c.launches for n, c in counters().items()}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            wall = wall_ms(lambda: compute_flow_jit(img1, img2, cfg=pcfg))
+        launched = {n: c.launches - before[n] for n, c in counters().items()}
+        total_us, count = 0.0, 0
+        per = {n: [0.0, 0] for n in PROFILED}
+        for e in prof.key_averages():
+            if e.self_device_time_total <= 0:
+                continue
+            total_us += e.self_device_time_total
+            count += e.count
+            for n, (kernels, _) in PROFILED.items():
+                if any(k in e.key for k in kernels):
+                    per[n][0] += e.self_device_time_total
+                    per[n][1] += e.count
+        complete = all(
+            per[n][1] == len(kernels) * sum(launched[r] for r in rows)
+            for n, (kernels, rows) in PROFILED.items())
+        log(f"profile of a replay, {label} [synthetic]: wall {wall:.1f} ms "
+            f"under the profiler, {count} device events, device busy "
+            f"{total_us / 1e3:.3f} ms, {total_us / 1e3 / r_ms:.1%} of the "
+            f"unprofiled replay median; "
+            + ", ".join(f"{n} {us / 1e3:.3f} ms ({k})"
+                        for n, (us, k) in per.items())
+            + ("; every hand kernel's events match its launches" if complete
+               else "; INCOMPLETE: events and launches differ"))
+    log(f"CUDA graphs: {GRAPHS.captures} captured in this process, "
+        f"{GRAPHS.evictions} evicted (at most {GRAPHS.capacity} kept)")
 
 
 SOURCES = {  # name: (source, the TPU kernel it replaces, the path it runs on)
@@ -1914,6 +2100,7 @@ def main() -> int:
     launches = timed(phase_end_to_end, dev)
     timed(phase_agreement, dev)
     timed(phase_dossier, dev)
+    timed(phase_graphs, dev)
     kernels = []
     for name, (source, replaces, path) in SOURCES.items():
         r = rows[name]

@@ -52,7 +52,8 @@ from .io import (IMAGE_EXTS, read_flo, read_image, read_image_batch,
 from .metrics import bad_pixel_rate, flow_error
 from .ops.color import flow_to_color
 from .parallel import compute_flow_sharded, make_mesh
-from .pipeline import compute_flow
+from .graphs import GRAPHS
+from .pipeline import compute_flow_jit
 from .utils.timing import DeviceTimer
 
 __all__ = ["main", "apply_overrides", "PRESETS"]
@@ -136,11 +137,12 @@ def _evaluate(flow: np.ndarray, gt_path: str, border: int) -> dict:
 
 def flow_fn(cfg: EPPMConfig, mesh=None):
     """``fn(img1, img2, init_flow=None)``: the flow of one pair on the
-    frames' device, or, with a ``mesh``, through the multi-device path
-    (the flow on the mesh's first device)."""
+    frames' device through ``compute_flow_jit`` (on the card a CUDA graph
+    per shape, replayed), or, with a ``mesh``, through the multi-device
+    path, eagerly (the flow on the mesh's first device)."""
     if mesh is None:
-        return lambda a, b, init=None: compute_flow(a, b, cfg,
-                                                    init_flow=init)
+        return lambda a, b, init=None: compute_flow_jit(
+            a, b, cfg=cfg, init_flow=init)
 
     def sharded(a, b, init=None):
         return compute_flow_sharded(
@@ -177,7 +179,10 @@ def evaluate_dir(eval_dir: str, pattern: str, cfg: EPPMConfig,
     ({"epe": None} where not) -> {"sequences": {name: report}, "mean_epe":
     the mean of the EPEs}; with ``timed`` each report also holds the
     pair's "ms" by ``DeviceTimer`` (frames on the device to flow
-    computed); on ``mesh`` through the multi-device path."""
+    computed), and where that call captured a CUDA graph (the first pair
+    of a shape on the card) its ms as "capture_ms" and the ms of a
+    second call, a replay, as "ms"; on ``mesh`` through the multi-device
+    path."""
     run = flow_fn(cfg, mesh)
     f1n, f2n, gtn = pattern.split(",")
     results = {}
@@ -189,14 +194,23 @@ def evaluate_dir(eval_dir: str, pattern: str, cfg: EPPMConfig,
         if not (os.path.isfile(f1) and os.path.isfile(f2)):
             continue
         img1, img2 = _load(f1, device), _load(f2, device)
+        captures = GRAPHS.captures
         timer = DeviceTimer(device).start()
         flow = run(img1, img2)
         ms = timer.stop() * 1e3
+        capture_ms = None
+        if timed and GRAPHS.captures != captures:
+            capture_ms = ms
+            timer = DeviceTimer(device).start()
+            flow = run(img1, img2)
+            ms = timer.stop() * 1e3
         flow = flow.cpu().numpy()
         results[name] = (_evaluate(flow, gt, border) if os.path.isfile(gt)
                          else {"epe": None})
         if timed:
             results[name]["ms"] = ms
+            if capture_ms is not None:
+                results[name]["capture_ms"] = capture_ms
     epes = [r["epe"] for r in results.values() if r["epe"] is not None]
     return {"sequences": results,
             "mean_epe": float(np.mean(epes)) if epes else None,

@@ -22,7 +22,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 __all__ = ["CudaKernel", "BUILD_DIR", "CSRC_DIR", "build_library",
            "build_seconds", "library_path", "nvcc_path"]
@@ -121,13 +121,19 @@ class CudaKernel:
     stream and returns ``cudaGetLastError()``; a non-zero code raises.
     ``launches`` counts successful launches and nothing else, so a run can
     show that it went through the kernel.  ``call`` calls an entry point
-    that launches nothing (a query) and counts nothing."""
+    that launches nothing (a query) and counts nothing.  Under CUDA graph
+    capture a launch is recorded, not run: ``graphs.py`` takes the
+    captured launches back off ``launches`` and adds them at each replay
+    (``instances`` lists every entry point for that)."""
+
+    instances: List["CudaKernel"] = []
 
     def __init__(self, symbol: str, argtypes: Sequence):
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
         self._fn = None
+        CudaKernel.instances.append(self)
 
     def _entry(self):
         if self._fn is None:

@@ -35,7 +35,8 @@ import numpy as np
 import torch
 
 from ..config import CostConfig
-from ._util import exp_cephes, fma32, ftz, inv32, pad_edge, popcount8, shift2d
+from ._util import (exp_cephes, f32, fma32, ftz, inv32, pad_edge, popcount8,
+                    shift2d)
 
 __all__ = ["pack_frame", "make_patch_stack", "patch_cost_stack", "tap_weight",
            "cost_constants", "ad_census", "census_lut", "bilateral_cost",
@@ -88,7 +89,7 @@ def tap_weight(dy: int, dx: int, sigma_spatial: float) -> float:
     stores it."""
     s2 = sigma_spatial * sigma_spatial
     g = math.exp(-(dy * dy) / s2) * math.exp(-(dx * dx) / s2)
-    return float(torch.tensor(g, dtype=torch.float32))
+    return f32(g)
 
 
 def ad_census(p1: torch.Tensor, p2: torch.Tensor, inv_lam_ad2: float,
@@ -314,31 +315,34 @@ def plane_offsets(cfg: CostConfig) -> List[Tuple[Tuple[int, int], ...]]:
     return tables
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def census_lut(inv_lam_cen2: float, device=None) -> torch.Tensor:
     """c_cen of every XOR of two 8-bit census signatures (256,) float32,
     computed by the operations of ``ad_census``: looking a term up here
-    gives its bits.  Made once per device."""
+    gives its bits.  Made once per device and never freed (a CUDA graph
+    holds its address)."""
     ham = popcount8(torch.arange(256, dtype=torch.int32, device=device))
     ham = ham.to(torch.float32)
     return 1.0 - exp_cephes(-(ham * ham) * inv_lam_cen2)
 
 
-@functools.lru_cache(maxsize=256)
+@functools.lru_cache(maxsize=None)
 def _column(vals, dtype, device) -> torch.Tensor:
-    """The values as a (T, 1, 1, 1) tensor on ``device``, made once."""
+    """The values as a (T, 1, 1, 1) tensor on ``device``, made once and
+    never freed (a CUDA graph holds its address)."""
     return torch.tensor(vals, dtype=dtype, device=device).view(-1, 1, 1, 1)
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _chunk_tables(taps1, taps2, sigma_spatial: float, base: int, h: int,
                   w: int, device, chunk: int = TAP_CHUNK):
     """Per chunk of ``chunk`` taps, on ``device``: the frame-1 row and
     column indices into a pack padded by ``base`` ((T, h, 1), (T, 1, w)),
     the frame-2 offsets (T, 1, 1, 1) int32 (None for ``taps2=None``) and
-    the spatial weights (T, 1, 1, 1) float32.  Made once per set, so a
-    call copies nothing from the host (a copy would wait for the
-    device)."""
+    the spatial weights (T, 1, 1, 1) float32.  Made once per set and
+    never freed, so a call copies nothing from the host (a copy would
+    wait for the device) and a CUDA graph that holds the tables'
+    addresses finds them in place."""
     def col(vals, dtype):
         return _column(tuple(vals), dtype, device)
 

@@ -22,7 +22,7 @@ from typing import Tuple
 import torch
 
 from ..config import FLT_MAX, CostConfig, MatchConfig
-from ._util import grid, shift2d, trunc_i32
+from ._util import f32, grid, shift2d, trunc_i32
 from .census import census_transform
 from .cost import (TAP_CHUNK, make_patch_stack, pack_frame, patch_cost_stack,
                    quantize_cost)
@@ -61,8 +61,7 @@ def patch_descriptors(
     feats = []
     for dy in range(-r, r + 1, s):
         for dx in range(-r, r + 1, s):
-            gw = float(torch.tensor(math.exp(-(dy * dy + dx * dx) / sig2),
-                                    dtype=torch.float32))
+            gw = f32(math.exp(-(dy * dy + dx * dx) / sig2))
             feats.append(shift2d(rgb, dy, dx) * gw)
             feats.append(shift2d(bits, dy, dx) * gw)
     out = torch.cat(feats, dim=-1)

@@ -71,7 +71,7 @@ def prng_key(seed: int, device=None) -> torch.Tensor:
     seed = int(seed)
     hi = 0 if _INT32_MIN <= seed <= _INT32_MAX else (seed >> 32) & MASK
     key = torch.full((2,), seed & MASK, dtype=torch.int64, device=device)
-    key[0] = hi
+    key[:1].fill_(hi)  # a fill: ``key[0] = hi`` copies from the host
     return key
 
 

@@ -17,6 +17,7 @@ All functions take float tensors of shape (H, W) or (H, W, C).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Sequence, Tuple
 
@@ -79,6 +80,19 @@ def _resize_axis_indices(
     return i0, i1, dx.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _axis_tables(out_size: int, in_size: int, ratio: float, shift: int,
+                 device: torch.device):
+    """``_resize_axis_indices`` on ``device``: (i0, i1) int64 and frac
+    float32, made once per set and never freed, so a resize copies
+    nothing from the host (a copy would wait for the device, and a CUDA
+    graph holds the tables' addresses).  A pair needs a few sets per
+    level."""
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in _resize_axis_indices(out_size, in_size, ratio,
+                                               shift))
+
+
 def bilinear_resize(
     img: torch.Tensor, out_h: int, out_w: int, ratio: float,
     fused: bool = False, shift: int = 0,
@@ -92,16 +106,13 @@ def bilinear_resize(
     and the output the tile's own upsampled pixels (the clamps then bind
     at the halo's edge, which holds the globally clamped values)."""
     h, w = img.shape[0], img.shape[1]
-    dev = img.device
-    y0, y1, fy = _resize_axis_indices(out_h, h, ratio, shift)
-    x0, x1, fx = _resize_axis_indices(out_w, w, ratio, shift)
+    y0, y1, fy = _axis_tables(out_h, h, float(ratio), shift, img.device)
+    x0, x1, fx = _axis_tables(out_w, w, float(ratio), shift, img.device)
     tail = (1,) * (img.dim() - 2)
-    fy = torch.from_numpy(fy).to(dev).reshape((-1, 1) + tail)
-    fx = torch.from_numpy(fx).to(dev).reshape((1, -1) + tail)
-    x0 = torch.from_numpy(x0).to(dev)
-    x1 = torch.from_numpy(x1).to(dev)
-    r0 = img.index_select(0, torch.from_numpy(y0).to(dev))
-    r1 = img.index_select(0, torch.from_numpy(y1).to(dev))
+    fy = fy.reshape((-1, 1) + tail)
+    fx = fx.reshape((1, -1) + tail)
+    r0 = img.index_select(0, y0)
+    r1 = img.index_select(0, y1)
 
     def lerp(a, b, f):
         if fused:

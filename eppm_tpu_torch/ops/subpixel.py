@@ -21,6 +21,7 @@ operator in float64): the card and the CPU compute the same values.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
@@ -104,6 +105,41 @@ def _phases(img: torch.Tensor) -> torch.Tensor:
                         for fy in (0.0, 0.5) for fx in (0.0, 0.5)])
 
 
+def _taps(R: int):
+    return [(i, j) for i in range(-R, R + 1, 2) for j in range(-R, R + 1, 2)]
+
+
+def _positions(nr: int):
+    return [(dy, dx) for dy in range(-nr, nr + 1) for dx in range(-nr, nr + 1)]
+
+
+# The tables below are made once per set and device and never freed: a
+# call copies nothing from the host (a copy would wait for the device, and
+# a CUDA graph holds the tables' addresses).
+
+@functools.lru_cache(maxsize=None)
+def _tap_weights(R: int, sig_s2: float, device: torch.device):
+    """The spatial weights of the taps, float32, one (CHUNK, 1, 1) tensor
+    a chunk of ``CHUNK`` taps."""
+    taps = _taps(R)
+    gws = [f32(math.exp(-(j * j) / sig_s2) * math.exp(-(i * i) / sig_s2))
+           for i, j in taps]
+    return [torch.tensor(gws[c0 : c0 + CHUNK], dtype=torch.float32,
+                         device=device)[:, None, None]
+            for c0 in range(0, len(taps), CHUNK)]
+
+
+@functools.lru_cache(maxsize=None)
+def _fit_operator(nr: int, device: torch.device) -> torch.Tensor:
+    """pinv(A) of the quadratic's design matrix over the positions, the
+    pseudo-inverse in float64 numpy, rounded to float32 values and held
+    as float64 (6, (2 nr + 1)^2)."""
+    A = np.asarray([[dx * dx, dy * dy, dx * dy, dx, dy, 1.0]
+                    for (dy, dx) in _positions(nr)], np.float64)
+    P = torch.from_numpy(np.linalg.pinv(A).astype(np.float32))
+    return P.to(device).double()
+
+
 def subpixel_refine(
     flow: torch.Tensor,
     img1: torch.Tensor,
@@ -157,11 +193,9 @@ def subpixel_refine(
         return cp[PAD2 + i : PAD2 + i + 2 * h : 2,
                   PAD2 + j : PAD2 + j + 2 * w : 2]
 
-    taps = [(i, j) for i in range(-R, R + 1, 2) for j in range(-R, R + 1, 2)]
-    gws = [f32(math.exp(-(j * j) / sig_s2) * math.exp(-(i * i) / sig_s2))
-           for i, j in taps]
-    positions = [(dy, dx) for dy in range(-nr, nr + 1)
-                 for dx in range(-nr, nr + 1)]
+    taps = _taps(R)
+    gws = _tap_weights(R, sig_s2, dev)
+    positions = _positions(nr)
     costs = []
     for dy, dx in positions:
         acc_c = torch.zeros((h, w), dtype=torch.float32, device=dev)
@@ -178,9 +212,8 @@ def subpixel_refine(
             c_cen = 1.0 - exp_cephes(-(ham * ham) * inv_lam_cen2)
             dr1 = maxabs3(center1, p1)
             dr2 = maxabs3(center2, p2)
-            gw = torch.tensor(gws[c0 : c0 + CHUNK], dtype=torch.float32,
-                              device=dev)[:, None, None]
-            wgt = exp_cephes(-(dr1 * dr1 + dr2 * dr2) * inv_sig_r2) * gw
+            wgt = exp_cephes(-(dr1 * dr1 + dr2 * dr2) * inv_sig_r2) * \
+                gws[c0 // CHUNK]
             wc = wgt * (c_ad + c_cen)
             for t in range(len(chunk)):
                 acc_c = acc_c + wc[t]
@@ -193,14 +226,11 @@ def subpixel_refine(
         costs.append(torch.where(inb, cost, 2.0))
     B = torch.stack(costs)  # (25, H, W)
 
-    # the constant least-squares operator X = pinv(A) @ B, the pseudo-
-    # inverse in float64 numpy, applied as float32 values; the 25 products
-    # are summed in float64 (exact products, any order: no device
-    # dependence) and rounded once
-    A = np.asarray([[dx * dx, dy * dy, dx * dy, dx, dy, 1.0]
-                    for (dy, dx) in positions], np.float64)
-    P = torch.from_numpy(np.linalg.pinv(A).astype(np.float32)).to(dev)
-    X = torch.einsum("kn,nhw->khw", P.double(), B.double()).to(torch.float32)
+    # the constant least-squares operator X = pinv(A) @ B (``_fit_operator``);
+    # the 25 products are summed in float64 (exact products, any order: no
+    # device dependence) and rounded once
+    X = torch.einsum("kn,nhw->khw", _fit_operator(nr, dev),
+                     B.double()).to(torch.float32)
     a, b, c, d, e = X[0], X[1], X[2], X[3], X[4]
     denorm = c * c - 4.0 * a * b
     safe = torch.where(denorm == 0, 1.0, denorm)

@@ -23,10 +23,14 @@ bao_flow_patchmatch_multiscale_cuda.cpp:217-315):
   level 0: the optional quadratic subpixel stage (``subpixel_refine``,
     plain torch), then one more flow smoothing
 
-PyTorch runs eagerly on the device of the input tensors: CUDA tensors
-launch the hand-written kernels, CPU tensors take their plain versions.
-The JAX package's staged programs (``STAGED_PIPELINE_THRESHOLD``) work
-around a TPU fault and have no counterpart here.
+``compute_flow`` runs eagerly on the device of the input tensors: CUDA
+tensors launch the hand-written kernels, CPU tensors take their plain
+versions.  ``compute_flow_jit``, the JAX package's entry point and its
+arguments, replays one CUDA graph per shape and configuration of the same
+call on CUDA frames (``graphs.py``) and runs ``compute_flow`` on CPU
+frames; ``EPPMFlow`` and the command line go through it.  The JAX
+package's staged programs (``STAGED_PIPELINE_THRESHOLD``) work around a
+TPU fault and have no counterpart here.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import torch
 from torch import nn
 
 from .config import DEFAULT_CONFIG, EPPMConfig
+from .graphs import GRAPHS, graph_key
 from .ops._util import f32, inv32
 from .ops.census import census_transform
 from .ops.cost import pack_frame
@@ -52,7 +57,8 @@ from .ops.refine import (blf_refine_flow, flow_to_nnf, lr_check, nnf_to_flow,
 from .ops.resize import bilinear_resize, gaussian_filter, gaussian_pyramid
 from .ops.subpixel import subpixel_refine
 
-__all__ = ["prepare_pyramids", "compute_flow", "EPPMFlow"]
+__all__ = ["prepare_pyramids", "compute_flow", "compute_flow_jit",
+           "EPPMFlow"]
 
 
 def _normalize(img: torch.Tensor) -> torch.Tensor:
@@ -224,6 +230,42 @@ def compute_flow(
     return flow_smoothing_auto(flow, levels1[0], cfg.refine)
 
 
+def compute_flow_jit(
+    img1: torch.Tensor,
+    img2: torch.Tensor,
+    key: Optional[torch.Tensor] = None,
+    cfg: EPPMConfig = DEFAULT_CONFIG,
+    fine_level_wmf: bool = False,
+    init_flow: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``compute_flow`` as the JAX package's entry point runs it (its
+    name and argument order): on CUDA frames one CUDA graph of the whole
+    pair, captured the first time its shapes, dtypes, ``cfg``,
+    ``fine_level_wmf`` and given arguments are seen, replayed after that
+    (``graphs.GRAPHS``); the flow is the eager call's, bit for bit, and a
+    fresh tensor.  A failed capture raises; nothing falls back.  On CPU
+    frames it runs ``compute_flow``.  Under the PatchMatch engine the
+    default key ``prng_key(cfg.seed)`` is made outside the graph and
+    copied into it like a given ``key``.  The port-only ``generator`` and
+    ``samplers`` stay on ``compute_flow``."""
+    if img1.device.type != "cuda":
+        return compute_flow(img1, img2, cfg, fine_level_wmf, init_flow,
+                            key=key)
+    for name, t in (("img2", img2), ("init_flow", init_flow), ("key", key)):
+        if t is not None and t.device != img1.device:
+            raise ValueError(f"{name} on {t.device}, frames on {img1.device}")
+    gkey = graph_key(img1, img2, cfg, fine_level_wmf, init_flow, key)
+    if key is None and cfg.match_engine == "patchmatch":
+        key = prng_key(cfg.seed, img1.device)
+
+    def run(img1, img2, init_flow, key):
+        return compute_flow(img1, img2, cfg, fine_level_wmf, init_flow,
+                            key=key)
+
+    return GRAPHS.run(gkey, run, {"img1": img1, "img2": img2,
+                                  "init_flow": init_flow, "key": key})
+
+
 class EPPMFlow(nn.Module):
     """Object API mirroring the reference orchestrator
     (bao_flow_patchmatch_multiscale_cuda.h:33-44): ``init(h, w)``,
@@ -236,7 +278,13 @@ class EPPMFlow(nn.Module):
     Without a CUDA device the default raises; ``device="cpu"`` runs the
     kernels' plain versions.  Under the PatchMatch engine each call draws
     from the ``key``, ``generator`` or ``samplers`` it is given, else
-    from ``prng_key(cfg.seed)`` (``compute_flow``)."""
+    from ``prng_key(cfg.seed)``.
+
+    For streaming frame pairs at a fixed resolution: each call goes
+    through ``compute_flow_jit``, which on the card replays one CUDA
+    graph per shape and configuration, as the JAX package's ``EPPMFlow``
+    goes through its jit cache.  A call given a ``generator`` or
+    ``samplers`` (port-only draws) runs the eager ``compute_flow``."""
 
     def __init__(self, cfg: EPPMConfig = DEFAULT_CONFIG,
                  device: Union[str, torch.device] = "cuda"):
@@ -271,24 +319,33 @@ class EPPMFlow(nn.Module):
                      generator: Optional[torch.Generator] = None,
                      samplers=None,
                      key: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The flow of the ``set_data`` pair; ``init_flow`` (moved to the
-        model's device) warm-starts the dense coarse match, ``key``,
-        ``generator`` or ``samplers`` feed the PatchMatch engine
-        (``compute_flow``)."""
+        """The flow of the ``set_data`` pair through ``compute_flow_jit``;
+        ``init_flow`` (moved to the model's device) warm-starts the dense
+        coarse match, ``key`` feeds the PatchMatch engine.  Given a
+        ``generator`` or ``samplers`` instead, the eager
+        ``compute_flow``."""
         if self._img1 is None:
             raise RuntimeError("set_data() must be called before compute_flow()")
         if init_flow is not None:
             init_flow = init_flow.to(self.device)
         if key is not None:
             key = key.to(self.device)
-        return compute_flow(self._img1, self._img2, self.cfg,
-                            fine_level_wmf, init_flow, generator, samplers,
-                            key)
+        if generator is not None or samplers is not None:
+            return compute_flow(self._img1, self._img2, self.cfg,
+                                fine_level_wmf, init_flow, generator,
+                                samplers, key)
+        return compute_flow_jit(self._img1, self._img2, key, self.cfg,
+                                fine_level_wmf, init_flow)
 
     def forward(self, img1: torch.Tensor, img2: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 key: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The flow of a pair through ``compute_flow_jit`` (the eager
+        ``compute_flow`` given a ``generator``)."""
+        img1, img2 = img1.to(self.device), img2.to(self.device)
         if key is not None:
             key = key.to(self.device)
-        return compute_flow(img1.to(self.device), img2.to(self.device),
-                            self.cfg, generator=generator, key=key)
+        if generator is not None:
+            return compute_flow(img1, img2, self.cfg, generator=generator,
+                                key=key)
+        return compute_flow_jit(img1, img2, key, self.cfg)
