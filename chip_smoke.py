@@ -84,14 +84,15 @@ final line is not printed):
    - the command line on that engine: ``--gt`` with a KITTI 16-bit PNG
      ground truth, and ``--eval-dir`` over two 640x480 sequences (the
      scores of each);
-   - the multi-device path (``parallel.compute_flow_sharded``) on meshes
-     of this card repeated: a 1080p pair on a (1, 1, 2) and on a (1, 2,
-     2) mesh (padded to 1088x1920), each within the contract of
-     single-device ``EPPMFlow`` and of each other, ms per pair beside the
-     single device's, kernels A and B launched once per tile where one
-     device launches them once; a (2, 1, 1) batch of two 640x480 pairs;
-     ``cli --mesh 1,1,1``, and a mesh of more cards than there are
-     refused;
+   - the multi-device path (``parallel.compute_flow_sharded``, on a
+     mesh of one card a CUDA graph per mesh and shape: the warm-up call
+     captures, the timed call replays) on meshes of this card repeated:
+     a 1080p pair on a (1, 1, 2) and on a (1, 2, 2) mesh (padded to
+     1088x1920), each within the contract of single-device ``EPPMFlow``
+     and of each other, ms per pair beside the single device's, kernels
+     A and B launched once per tile where one device launches them once;
+     a (2, 1, 1) batch of two 640x480 pairs; ``cli --mesh 1,1,1``, and a
+     mesh of more cards than there are refused;
 5. agreement: the port on the card against the port on the CPU (plain
    versions) at 192x256, under ``DEFAULT_CONFIG`` and with both plane
    flags, and under ``DEFAULT_CONFIG`` on a pair with black regions,
@@ -138,7 +139,15 @@ final line is not printed):
    640x480 and 1080p, default and PatchMatch, and one replay of each at
    1080p under ``torch.profiler`` (device events, device busy as a share
    of the replayed wall, each hand kernel's events against the launches
-   the replay added).
+   the replay added); then ``compute_flow_sharded`` (one CUDA graph per
+   mesh and shape on meshes of this card repeated) against its eager
+   body, ``compute_flow_sharded_eager``: 1080p on (1, 1, 2) and on (1, 2,
+   2) padded to 1088x1920, a (2, 1, 1) batch of two 640x480 pairs, a warm
+   640x480 (1, 1, 2) pair and PatchMatch on its default keys, each as
+   above (the eager body under the sync debug mode, both replays
+   identical to it, its launches a replay's, kernel B once a tile a
+   level), and at 1080p on (1, 1, 2) the walls of 10 replays against 5
+   eager calls and a replay under the profiler.
 
 Each phase logs its seconds.  The line before the last is one JSON object
 with a row per kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -1391,7 +1400,11 @@ def sharded_cases(dev) -> dict:
     distinct device: once); the two meshes' flows against each other,
     and the padded EPPMFlow's against the unpadded one, logged; a
     (2, 1, 1) batch of two 640x480 pairs; ``cli --mesh 1,1,1`` on the
-    card, and a mesh that needs more cards than there are refused."""
+    card, and a mesh that needs more cards than there are refused.  On
+    these meshes of one card ``compute_flow_sharded`` replays a CUDA
+    graph per mesh and shape: each path's warm-up call captures it, the
+    timed call replays it (phase 7 holds the replays to the eager
+    body)."""
     import contextlib
     import io as _io
     import math
@@ -1896,7 +1909,13 @@ def phase_dossier(dev) -> None:
 
 
 def graph_label(key) -> str:
-    """A graph key of ``graphs.graph_key`` in a few words."""
+    """A graph key of ``graphs.graph_key`` or of ``parallel.sharded.
+    sharded_graph_key`` in a few words."""
+    if key[0] == "compute_flow_sharded":
+        _, mesh, _, (shape, dtype), _, gcfg, init, given = key
+        return (f"sharded {mesh} mesh, {shape[0]} x {shape[2]}x{shape[1]} "
+                f"{str(dtype).replace('torch.', '')} {gcfg.match_engine}"
+                f"{' init_flows' if init else ''}{' keys' if given else ''}")
     _, (shape, dtype), _, gcfg, fine, init, given = key
     return (f"{shape[1]}x{shape[0]} {str(dtype).replace('torch.', '')} "
             f"{gcfg.match_engine}{' fine_level_wmf' if fine else ''}"
@@ -1928,8 +1947,6 @@ def phase_graphs(dev) -> None:
     device events, device busy as a share of the replayed wall, and each
     hand kernel's events against the launches the replay added."""
     import statistics
-
-    from torch.profiler import ProfilerActivity, profile
 
     from eppm_tpu_torch.config import DEFAULT_CONFIG as cfg
     from eppm_tpu_torch.graphs import GRAPHS, graph_key
@@ -1995,13 +2012,8 @@ def phase_graphs(dev) -> None:
             img1, img2, kw["cfg"], kw.get("fine_level_wmf", False),
             kw.get("init_flow"), kw.get("key"))])
 
-    def wall_ms(fn) -> float:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
-
     name = torch.cuda.get_device_name(dev)
+    jit_1080p_ms = None
     for label, (img1, img2), pcfg in (
             ("default 640x480", small, cfg), ("default 1080p", large, cfg),
             ("patchmatch 640x480", small, pm),
@@ -2024,34 +2036,156 @@ def phase_graphs(dev) -> None:
             continue
         entry = GRAPHS.entries[graph_key(img1, img2, pcfg, False, None, None)]
         log_capture(entry)
-        before = {n: c.launches for n, c in counters().items()}
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            wall = wall_ms(lambda: compute_flow_jit(img1, img2, cfg=pcfg))
-        launched = {n: c.launches - before[n] for n, c in counters().items()}
-        total_us, count = 0.0, 0
-        per = {n: [0.0, 0] for n in PROFILED}
-        for e in prof.key_averages():
-            if e.self_device_time_total <= 0:
-                continue
-            total_us += e.self_device_time_total
-            count += e.count
-            for n, (kernels, _) in PROFILED.items():
-                if any(k in e.key for k in kernels):
-                    per[n][0] += e.self_device_time_total
-                    per[n][1] += e.count
-        complete = all(
-            per[n][1] == len(kernels) * sum(launched[r] for r in rows)
-            for n, (kernels, rows) in PROFILED.items())
-        log(f"profile of a replay, {label} [synthetic]: wall {wall:.1f} ms "
-            f"under the profiler, {count} device events, device busy "
-            f"{total_us / 1e3:.3f} ms, {total_us / 1e3 / r_ms:.1%} of the "
-            f"unprofiled replay median; "
-            + ", ".join(f"{n} {us / 1e3:.3f} ms ({k})"
-                        for n, (us, k) in per.items())
-            + ("; every hand kernel's events match its launches" if complete
-               else "; INCOMPLETE: events and launches differ"))
+        profile_replay(label, lambda: compute_flow_jit(img1, img2, cfg=pcfg),
+                       r_ms)
+        if label == "default 1080p":
+            jit_1080p_ms = r_ms
+    sharded_graphs(dev, large, small, warm, jit_1080p_ms)
     log(f"CUDA graphs: {GRAPHS.captures} captured in this process, "
         f"{GRAPHS.evictions} evicted (at most {GRAPHS.capacity} kept)")
+
+
+def wall_ms(fn) -> float:
+    """``fn()``'s wall on the host clock, ending in a synchronize."""
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def profile_replay(label: str, run, r_ms: float) -> None:
+    """One call of ``run`` (a replay) under ``torch.profiler``, device
+    activity only: its device events, device busy as a share of ``r_ms``
+    (the unprofiled replay median), and each hand kernel's events against
+    the launches the replay added."""
+    from torch.profiler import ProfilerActivity, profile
+
+    before = {n: c.launches for n, c in counters().items()}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall = wall_ms(run)
+    launched = {n: c.launches - before[n] for n, c in counters().items()}
+    total_us, count = 0.0, 0
+    per = {n: [0.0, 0] for n in PROFILED}
+    for e in prof.key_averages():
+        if e.self_device_time_total <= 0:
+            continue
+        total_us += e.self_device_time_total
+        count += e.count
+        for n, (kernels, _) in PROFILED.items():
+            if any(k in e.key for k in kernels):
+                per[n][0] += e.self_device_time_total
+                per[n][1] += e.count
+    complete = all(
+        per[n][1] == len(kernels) * sum(launched[r] for r in rows)
+        for n, (kernels, rows) in PROFILED.items())
+    log(f"profile of a replay, {label} [synthetic]: wall {wall:.1f} ms "
+        f"under the profiler, {count} device events, device busy "
+        f"{total_us / 1e3:.3f} ms, {total_us / 1e3 / r_ms:.1%} of the "
+        f"unprofiled replay median; "
+        + ", ".join(f"{n} {us / 1e3:.3f} ms ({k})"
+                    for n, (us, k) in per.items())
+        + ("; every hand kernel's events match its launches" if complete
+           else "; INCOMPLETE: events and launches differ")
+        + f"; launches the replay added {launched}")
+
+
+def sharded_graphs(dev, large, small, warm, jit_1080p_ms) -> None:
+    """``compute_flow_sharded`` on meshes of this card repeated (one CUDA
+    graph per mesh and shape) against its eager body,
+    ``compute_flow_sharded_eager``: 1080p on (1, 1, 2) and on (1, 2, 2)
+    (padded to 1088x1920), a (2, 1, 1) batch of two 640x480 pairs, a warm
+    640x480 (1, 1, 2) pair (``init_flows``) and PatchMatch on its default
+    keys.  For each, the capture and first replay, the eager body under
+    ``torch.cuda.set_sync_debug_mode("error")``, a second replay, both
+    replays ``torch.equal`` to the eager flow, the launches a replay adds
+    equal to the eager call's (kernel B once a tile a level), and the
+    capture's seconds and memory.  Then at 1080p on (1, 1, 2) the median
+    wall of 10 replays against 5 eager calls, beside the replayed
+    ``EPPMFlow`` pair's (``jit_1080p_ms``), and one replay under the
+    profiler."""
+    import math
+    import statistics
+
+    from eppm_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from eppm_tpu_torch.graphs import GRAPHS
+    from eppm_tpu_torch.parallel import (compute_flow_sharded,
+                                         compute_flow_sharded_eager,
+                                         make_mesh, pad_to_tileable)
+
+    pm = dataclasses.replace(cfg, match_engine="patchmatch")
+    pair2 = [torch.from_numpy(np.stack([f, g])).to(dev) for f, g in zip(
+        shifted_pair(480, 640, 3, -2, SEED + 73),
+        shifted_pair(480, 640, -6, 4, SEED + 74))]
+
+    def mesh(*shape):
+        return make_mesh(*shape, devices=[dev] * math.prod(shape))
+
+    def one(p):   # a batch of one pair
+        return [f[None] for f in p]
+
+    cases = [  # (label, frames, mesh shape, kwargs)
+        ("1080p (1, 1, 2)", one(large), (1, 1, 2), dict(cfg=cfg)),
+        ("1080p (1, 2, 2), padded", one(large), (1, 2, 2), dict(cfg=cfg)),
+        ("(2, 1, 1), two 640x480 pairs", pair2, (2, 1, 1), dict(cfg=cfg)),
+        ("640x480 (1, 1, 2), warm", one(small), (1, 1, 2),
+         dict(cfg=cfg, init_flows=warm[None])),
+        ("640x480 (1, 1, 2), patchmatch on its default keys", one(small),
+         (1, 1, 2), dict(cfg=pm)),
+    ]
+    for label, (imgs1, imgs2), shape, kw in cases:
+        m = mesh(*shape)
+        first = compute_flow_sharded(imgs1, imgs2, m, **kw)
+        torch.cuda.synchronize()
+        entry = next(reversed(GRAPHS.entries.values()))
+        check(entry.key[0] == "compute_flow_sharded",
+              f"{label}: no graph of the sharded body")
+        before = {n: c.launches for n, c in counters().items()}
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            want = compute_flow_sharded_eager(imgs1, imgs2, m, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        eager = {n: c.launches - before[n] for n, c in counters().items()}
+        before = {n: c.launches for n, c in counters().items()}
+        again = compute_flow_sharded(imgs1, imgs2, m, **kw)
+        torch.cuda.synchronize()
+        replay = {n: c.launches - before[n] for n, c in counters().items()}
+        same = bool(torch.equal(first, want)) and bool(torch.equal(again, want))
+        log(f"sharded {label}: the eager body ran no synchronising op; "
+            f"replays {'identical to' if same else 'DIFFER from'} the eager "
+            f"flow; launches a replay {replay}")
+        check(same, f"sharded {label}: the replayed flow differs from the "
+              f"eager one")
+        check(replay == eager, f"sharded {label}: a replay launched "
+              f"{replay}, the eager body {eager}")
+        h, w = imgs1.shape[1:3]
+        ph, pw = pad_to_tileable(h, w, kw["cfg"], shape[1], shape[2])
+        levels = len(kw["cfg"].pyramid.level_dims(ph, pw))
+        smooth = shape[0] * shape[1] * shape[2] * levels
+        check(replay["flow_smoothing_paired"] == smooth,
+              f"sharded {label}: kernel B {replay['flow_smoothing_paired']} "
+              f"launches a replay, expected {smooth} (once a tile a level)")
+        check(replay["residual_costs"] > 0 and replay["cost_terms"] > 0,
+              f"sharded {label}: kernel A not launched by a replay")
+        log_capture(entry)
+
+    name = torch.cuda.get_device_name(dev)
+    label, (imgs1, imgs2), shape, kw = cases[0]
+    m = mesh(*shape)
+    eager = [wall_ms(lambda: compute_flow_sharded_eager(imgs1, imgs2, m,
+                                                        **kw))
+             for _ in range(5)]
+    replay = [wall_ms(lambda: compute_flow_sharded(imgs1, imgs2, m, **kw))
+              for _ in range(10)]
+    e_ms, r_ms = statistics.median(eager), statistics.median(replay)
+    log(f"wall sharded {label} [synthetic] ({name}): replay median "
+        f"{r_ms:.3f} ms (10: {min(replay):.3f}-{max(replay):.3f}) against "
+        f"eager median {e_ms:.3f} ms (5: {min(eager):.3f}-{max(eager):.3f}), "
+        f"{e_ms / r_ms:.2f}x; {r_ms / jit_1080p_ms:.2f}x the replayed "
+        f"EPPMFlow pair's {jit_1080p_ms:.3f} ms")
+    profile_replay(f"sharded {label}", lambda: compute_flow_sharded(
+        imgs1, imgs2, m, **kw), r_ms)
 
 
 SOURCES = {  # name: (source, the TPU kernel it replaces, the path it runs on)

@@ -25,8 +25,9 @@ versions of the kernels.  ``--set`` takes dotted config paths, e.g.
 overrides of a preset (``PRESETS``), ahead of the others.  ``--mesh
 B,Y,X`` runs each pair through the multi-device path
 (``parallel.compute_flow_sharded``) on a (B, Y, X) mesh of the CUDA
-devices 0..n-1 (it raises where there are fewer), or with ``--device
-cpu`` of the CPU named n times; one pair at a time, so B is 1.  The
+devices 0..n-1 (it raises where there are fewer; on one card, one CUDA
+graph per mesh and shape, replayed), or with ``--device cpu`` of the CPU
+named n times; one pair at a time, so B is 1.  The
 single-pair and stream reports are one JSON line; the ``--eval-dir``
 report is indented unless ``--json``.
 """
@@ -139,7 +140,9 @@ def flow_fn(cfg: EPPMConfig, mesh=None):
     """``fn(img1, img2, init_flow=None)``: the flow of one pair on the
     frames' device through ``compute_flow_jit`` (on the card a CUDA graph
     per shape, replayed), or, with a ``mesh``, through the multi-device
-    path, eagerly (the flow on the mesh's first device)."""
+    path, ``compute_flow_sharded`` (the flow on the mesh's first device;
+    on a mesh of one card a CUDA graph per mesh and shape, replayed; on
+    the CPU or over several cards eagerly)."""
     if mesh is None:
         return lambda a, b, init=None: compute_flow_jit(
             a, b, cfg=cfg, init_flow=init)

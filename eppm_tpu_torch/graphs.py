@@ -35,6 +35,9 @@ each ``CudaKernel.launches`` and each replay adds them again: the counts
 go on counting launches on the device.  A failed capture or replay
 raises with the key; nothing falls back to the eager path.  The cache
 holds ``MAX_GRAPHS`` graphs and evicts the least recently used (logged).
+The multi-device entry, ``parallel.compute_flow_sharded``, keeps its
+graphs of a mesh of one card in the same cache (``GRAPHS``), under keys
+of its own (``parallel.sharded.sharded_graph_key``).
 """
 
 from __future__ import annotations
@@ -50,11 +53,17 @@ import torch
 from .ops._build import CudaKernel
 
 __all__ = ["MAX_GRAPHS", "FlowGraph", "GraphCache", "GRAPHS", "graph_key",
-           "launch_counts", "take_back_launches"]
+           "tensor_meta", "launch_counts", "take_back_launches"]
 
 log = logging.getLogger(__name__)
 
 MAX_GRAPHS = 8
+
+
+def tensor_meta(t: Optional[torch.Tensor]) -> Optional[tuple]:
+    """What a graph is specialised to of an argument: its shape and dtype
+    (None where it is not given)."""
+    return None if t is None else (tuple(t.shape), t.dtype)
 
 
 def graph_key(img1: torch.Tensor, img2: torch.Tensor, cfg,
@@ -64,11 +73,8 @@ def graph_key(img1: torch.Tensor, img2: torch.Tensor, cfg,
     JAX entry's jit cache keys on (shapes, dtypes, ``cfg``,
     ``fine_level_wmf``, which optional arguments are given) and the
     device."""
-    def meta(t):
-        return None if t is None else (tuple(t.shape), t.dtype)
-
-    return (img1.device, meta(img1), meta(img2), cfg, bool(fine_level_wmf),
-            meta(init_flow), key is not None)
+    return (img1.device, tensor_meta(img1), tensor_meta(img2), cfg,
+            bool(fine_level_wmf), tensor_meta(init_flow), key is not None)
 
 
 def launch_counts() -> Dict[CudaKernel, int]:
@@ -211,5 +217,6 @@ class GraphCache:
         self.entries.clear()
 
 
-# compute_flow_jit's graphs
+# the graphs of compute_flow_jit and of compute_flow_sharded on one card
+# (parallel/sharded.py): one budget of device memory for both entries
 GRAPHS = GraphCache()

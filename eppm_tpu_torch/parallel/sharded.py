@@ -34,16 +34,33 @@ next level up (``check_tileable``); ``compute_flow_sharded`` pads other
 shapes (``pad_to_tileable``) and crops the flow back.  Like the JAX
 package's sharded program, this path has no ``fine_level_wmf`` and no
 ``subpixel_refine`` stage.
+
+One program per batch, as the JAX package's jit
+-----------------------------------------------
+``compute_flow_sharded`` splits as the JAX entry does: a front (the
+batch checked, the frames padded, the default keys made on the device,
+the flow cropped at the end) and a body, the loop over the pairs
+(``_sharded_body``, the counterpart of ``_compute_flow_sharded_jit``).
+On a mesh whose devices are all one CUDA card the body is one CUDA graph
+per mesh, batch, padded shape, dtype, ``cfg`` and given arguments
+(``sharded_graph_key``), captured once and replayed (``graphs.py``).  A
+mesh over several cards runs the body eagerly: a CUDA graph records the
+work of one device, and the exchanges between cards would need a graph
+per card, which no host with one card can check.  A CPU mesh runs it
+eagerly too, as ``compute_flow_jit`` runs CPU frames.
 """
 
 from __future__ import annotations
 
+import functools
+import logging
 from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..config import DEFAULT_CONFIG, UNKNOWN_FLOW, EPPMConfig
+from ..graphs import GRAPHS, tensor_meta
 from ..ops._util import _clamped
 from ..ops.cost import plane_offsets
 from ..ops.cuda_smooth import flow_smoothing_auto
@@ -56,7 +73,10 @@ from ..pipeline import coarse_flow, prepare_pyramids
 from .halo import halo_exchange_2d
 
 __all__ = ["Mesh", "make_mesh", "check_tileable", "pad_to_tileable",
-           "compute_flow_sharded"]
+           "compute_flow_sharded", "compute_flow_sharded_eager", "one_card",
+           "sharded_graph_key"]
+
+log = logging.getLogger(__name__)
 
 Grid = List[List[torch.Tensor]]
 
@@ -260,6 +280,109 @@ def _assemble(tiles: Grid, device: torch.device) -> torch.Tensor:
                       for row in tiles], 0)
 
 
+def _sharded_body(imgs1: torch.Tensor, imgs2: torch.Tensor,
+                  keys: torch.Tensor, init_flows: Optional[torch.Tensor],
+                  cfg: EPPMConfig, mesh: Mesh) -> torch.Tensor:
+    """The program of a batch on tileable frames (the counterpart of
+    ``_compute_flow_sharded_jit`` / ``_init_jit``): pair b on batch group
+    b // (B / batch) -> (B, H, W, 2) on the mesh's first device."""
+    per_group = imgs1.shape[0] // mesh.devices.shape[0]
+    out_dev = mesh.devices[0, 0, 0]
+    flows = []
+    for b in range(imgs1.shape[0]):
+        tiles = _pair_flow_tiled(
+            imgs1[b], imgs2[b], keys[b], cfg, mesh.devices[b // per_group],
+            None if init_flows is None else init_flows[b])
+        flows.append(_assemble(tiles, out_dev))
+    return torch.stack(flows)
+
+
+def _card(d: torch.device) -> torch.device:
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def one_card(mesh: Mesh) -> Optional[torch.device]:
+    """The CUDA device that every device of ``mesh`` names, or None: a
+    mesh with a CPU device, or over more than one card."""
+    devs = set(mesh.devices.ravel())
+    if any(d.type != "cuda" for d in devs):
+        return None
+    cards = {_card(d) for d in devs}
+    return cards.pop() if len(cards) == 1 else None
+
+
+def sharded_graph_key(imgs1: torch.Tensor, imgs2: torch.Tensor,
+                      init_flows: Optional[torch.Tensor], keys_given: bool,
+                      cfg: EPPMConfig, mesh: Mesh) -> tuple:
+    """What a graph of the sharded body is specialised to: what the JAX
+    package's jit keys on (the mesh's shape and devices, the batch and
+    the padded frames' shape and dtype, ``cfg``, whether ``init_flows``
+    is given) and whether ``keys`` were given."""
+    return ("compute_flow_sharded", mesh.devices.shape,
+            tuple(mesh.devices.ravel()), tensor_meta(imgs1),
+            tensor_meta(imgs2), cfg, tensor_meta(init_flows), keys_given)
+
+
+_EAGER_MESHES = set()   # meshes of several cards, logged once each
+
+
+def _sharded(imgs1, imgs2, mesh, cfg, keys, pad_to_fit, init_flows,
+             graphed: bool) -> torch.Tensor:
+    """``compute_flow_sharded``: the front (the batch checked, the frames
+    padded, the default keys made on the device), the body by replay of
+    its graph where ``graphed`` and the mesh is one card, else eagerly,
+    and the flow cropped back."""
+    B, h, w = imgs1.shape[0], imgs1.shape[1], imgs1.shape[2]
+    nb, ny, nx = mesh.devices.shape
+    if B % nb:
+        raise ValueError(f"batch {B} not divisible by mesh batch {nb}")
+    card = one_card(mesh)
+    if card is not None:
+        # the graph's static inputs live on the card
+        imgs1, imgs2 = imgs1.to(card), imgs2.to(card)
+        keys = None if keys is None else keys.to(card)
+        init_flows = None if init_flows is None else init_flows.to(card)
+    try:
+        check_tileable(h, w, cfg, ny, nx)
+    except ValueError:
+        if not pad_to_fit:
+            raise
+        ph, pw = pad_to_tileable(h, w, cfg, ny, nx)
+
+        def pad(t):
+            iy = _clamped(h, 0, ph, t.device)
+            ix = _clamped(w, 0, pw, t.device)
+            return t.index_select(1, iy).index_select(2, ix)
+
+        imgs1, imgs2 = pad(imgs1), pad(imgs2)
+        if init_flows is not None:
+            init_flows = pad(init_flows)
+    keys_given = keys is not None
+    if keys is None:
+        out_dev = mesh.devices[0, 0, 0]
+        keys = fold_in(prng_key(cfg.seed, out_dev),
+                       torch.arange(B, device=out_dev))
+    if graphed and card is not None:
+        out = GRAPHS.run(
+            sharded_graph_key(imgs1, imgs2, init_flows, keys_given, cfg,
+                              mesh),
+            functools.partial(_sharded_body, cfg=cfg, mesh=mesh),
+            {"imgs1": imgs1, "imgs2": imgs2, "keys": keys,
+             "init_flows": init_flows})
+    else:
+        devs = tuple(mesh.devices.ravel())
+        if (graphed and all(d.type == "cuda" for d in devs)
+                and devs not in _EAGER_MESHES):
+            _EAGER_MESHES.add(devs)
+            log.warning("mesh %s spans %d cards: its batches run eagerly "
+                        "(one CUDA graph holds the work of one card)",
+                        mesh.devices.shape, len(set(map(_card, devs))))
+        out = _sharded_body(imgs1, imgs2, keys, init_flows, cfg, mesh)
+    return out[:, :h, :w].contiguous()
+
+
 def compute_flow_sharded(
     imgs1: torch.Tensor,
     imgs2: torch.Tensor,
@@ -282,35 +405,31 @@ def compute_flow_sharded(
     A shape that ``check_tileable`` refuses is edge-padded at the bottom
     and right to ``pad_to_tileable`` and the flow cropped back (pixels
     within a patch radius of those borders then see replicated edge
-    texture); ``pad_to_fit=False`` raises instead."""
-    B, h, w = imgs1.shape[0], imgs1.shape[1], imgs1.shape[2]
-    nb, ny, nx = mesh.devices.shape
-    if B % nb:
-        raise ValueError(f"batch {B} not divisible by mesh batch {nb}")
-    try:
-        check_tileable(h, w, cfg, ny, nx)
-    except ValueError:
-        if not pad_to_fit:
-            raise
-        ph, pw = pad_to_tileable(h, w, cfg, ny, nx)
+    texture); ``pad_to_fit=False`` raises instead.
 
-        def pad(t):
-            iy = _clamped(h, 0, ph, t.device)
-            ix = _clamped(w, 0, pw, t.device)
-            return t.index_select(1, iy).index_select(2, ix)
+    As the JAX package jits its sharded program, a mesh whose devices
+    are all one CUDA card runs the batch as one CUDA graph (the
+    arguments moved to the card first), captured the first time its
+    mesh (shape and devices), batch, padded frames' shape and dtype,
+    ``cfg`` and given ``init_flows`` and ``keys`` are seen, and replayed
+    after that (``graphs.GRAPHS``, shared with ``compute_flow_jit``):
+    the flow is ``compute_flow_sharded_eager``'s, bit for bit.  A failed
+    capture raises; nothing falls back.  A mesh of CPU devices, or over
+    more than one card (logged once a mesh), runs eagerly."""
+    return _sharded(imgs1, imgs2, mesh, cfg, keys, pad_to_fit, init_flows,
+                    graphed=True)
 
-        imgs1, imgs2 = pad(imgs1), pad(imgs2)
-        if init_flows is not None:
-            init_flows = pad(init_flows)
-    out_dev = mesh.devices[0, 0, 0]
-    if keys is None:
-        keys = fold_in(prng_key(cfg.seed, out_dev), torch.arange(B))
-    per_group = B // nb
-    flows = []
-    for b in range(B):
-        devs = mesh.devices[b // per_group]
-        tiles = _pair_flow_tiled(
-            imgs1[b], imgs2[b], keys[b], cfg, devs,
-            None if init_flows is None else init_flows[b])
-        flows.append(_assemble(tiles, out_dev)[:h, :w])
-    return torch.stack(flows)
+
+def compute_flow_sharded_eager(
+    imgs1: torch.Tensor,
+    imgs2: torch.Tensor,
+    mesh: Mesh,
+    cfg: EPPMConfig = DEFAULT_CONFIG,
+    keys: Optional[torch.Tensor] = None,
+    pad_to_fit: bool = True,
+    init_flows: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``compute_flow_sharded`` run eagerly on every mesh, one op at a
+    time: what its graphs are held to."""
+    return _sharded(imgs1, imgs2, mesh, cfg, keys, pad_to_fit, init_flows,
+                    graphed=False)
