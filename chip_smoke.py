@@ -147,7 +147,18 @@ final line is not printed):
    above (the eager body under the sync debug mode, both replays
    identical to it, its launches a replay's, kernel B once a tile a
    level), and at 1080p on (1, 1, 2) the walls of 10 replays against 5
-   eager calls and a replay under the profiler.
+   eager calls and a replay under the profiler;
+8. the measurement programs (``eppm_tpu_torch/bench``), each ``main(argv)``
+   in this process on the card: ``bench`` at its defaults, ``bench_table``
+   at its four shapes, ``profile_stages`` and ``profile_match`` at
+   1080x1920, ``stream_bench --frames 8`` at 480x640 and 1080x1920; each
+   exits 0 (no CUDA graph captured or evicted inside a timed window),
+   prints JSON lines that parse (logged here), and meets its gates: the
+   throughput pair's warp error under 0.5x the zero-flow one and the
+   synthetic EPE under 1, every table shape's warp gate, the stages'
+   shares of the replayed pair (each against the pair replayed right
+   after it) summing to within 10% of 1 and their flow identical to the
+   pair's, the warm stream's EPE under 1.
 
 Each phase logs its seconds.  The line before the last is one JSON object
 with a row per kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -166,6 +177,8 @@ import time
 import numpy as np
 import torch
 
+from eppm_tpu_torch.testing import shifted_pair, texture
+
 SEED = 0
 
 
@@ -176,35 +189,6 @@ def log(*args):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"FAIL: {what}")
-
-
-def texture(h: int, w: int, seed: int) -> np.ndarray:
-    """Smooth float32 RGB texture in [0, 1]: seeded noise on a grid 8x
-    coarser, upsampled bicubically."""
-    rng = np.random.default_rng(seed)
-    small = torch.from_numpy(
-        rng.random((3, h // 8 + 3, w // 8 + 3)).astype(np.float32))
-    big = torch.nn.functional.interpolate(
-        small[None], size=(8 * (h // 8 + 3), 8 * (w // 8 + 3)),
-        mode="bicubic", align_corners=False)[0]
-    return big.clamp(0, 1)[:, :h, :w].permute(1, 2, 0).numpy()
-
-
-def shifted_pair(h: int, w: int, dx: int, dy: int, seed: int,
-                 dark: bool = False):
-    """uint8 (frame1, frame2) with frame1(p) = frame2(p + (dx, dy)): the
-    true flow from frame 1 to frame 2 is (dx, dy) wherever p + (dx, dy)
-    lies in the frame.  ``dark``: the scene's left third and a band in
-    its lower half are black."""
-    m = max(abs(dx), abs(dy)) + 8
-    big = (texture(h + 2 * m, w + 2 * m, seed) * 255).astype(np.uint8)
-    if dark:
-        bh, bw = big.shape[0], big.shape[1]
-        big[:, : bw // 3] = 0
-        big[bh // 2 :, bw // 2 : bw // 2 + 20] = 0
-    f2 = big[m : m + h, m : m + w]
-    f1 = big[m + dy : m + dy + h, m + dx : m + dx + w]
-    return np.ascontiguousarray(f1), np.ascontiguousarray(f2)
 
 
 def cuda_ms(fn, reps: int, warm: bool = True) -> float:
@@ -2188,6 +2172,67 @@ def sharded_graphs(dev, large, small, warm, jit_1080p_ms) -> None:
         imgs1, imgs2, m, **kw), r_ms)
 
 
+def run_program(name: str, argv) -> list:
+    """``eppm_tpu_torch.bench.<name>.main(argv)`` in this process, its
+    standard output captured: each line logged and parsed as JSON; fails
+    unless it exits 0."""
+    import contextlib
+    import importlib
+    import io
+
+    main = importlib.import_module(f"eppm_tpu_torch.bench.{name}").main
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(list(argv))
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"{name}: {line}")
+    log(f"{name} {' '.join(argv)}: exit {rc}, "
+        f"{time.perf_counter() - t:.1f} s")
+    check(rc == 0, f"{name} {' '.join(argv)} exited {rc}")
+    try:
+        return [json.loads(line) for line in lines]
+    except json.JSONDecodeError as e:
+        raise SystemExit(f"FAIL: {name} printed a line that is not JSON: {e}")
+
+
+def phase_programs(dev) -> None:
+    """The measurement programs on the card (phase 8 of the docstring)."""
+    log("== phase 8: the measurement programs (eppm_tpu_torch/bench)")
+    torch.cuda.empty_cache()
+    (line,) = run_program("bench", [])
+    check("error" not in line and line["value"] > 0,
+          f"bench: {line.get('error')}")
+    check(line["warp_ratio"] < 0.5 and line["synthetic_epe"] < 1.0,
+          f"bench gates: warp ratio {line['warp_ratio']}, synthetic EPE "
+          f"{line['synthetic_epe']}")
+    check(line["hd1080p_replays"] >= 10, "bench: fewer than 10 1080p replays")
+
+    (table,) = run_program("bench_table", [])
+    rows = table["table"]
+    check(len(rows) == 4 and all(r["gate"] for r in rows.values()),
+          f"bench_table: {rows}")
+    check(table["graphs"]["evictions"] == 0, "bench_table evicted a graph")
+
+    out = run_program("profile_stages", ["1080x1920"])
+    summary = out[-1]
+    check(summary["identical_to_full"]
+          and abs(summary["sum_over_full"] - 1.0) <= 0.10,
+          f"profile_stages: {summary}")
+
+    out = run_program("profile_match", ["1080x1920"])
+    check(out[-1]["rows"] == len(out) - 1 and out[-1]["rows"] >= 14,
+          f"profile_match: {out[-1]}")
+
+    for size in ("480x640", "1080x1920"):
+        cold, warm, epe = run_program("stream_bench",
+                                      ["--frames", "8", "--size", size])
+        check(cold["value"] > 0 and warm["value"] > 0 and epe["value"] < 1.0,
+              f"stream_bench {size}: {cold}, {warm}, {epe}")
+    torch.cuda.empty_cache()
+
+
 SOURCES = {  # name: (source, the TPU kernel it replaces, the path it runs on)
     "cost_terms": ("eppm_tpu_torch/csrc/cost.cu",
                    "eppm_tpu/ops/pallas_cost.py:173 (the AD + census terms; "
@@ -2217,8 +2262,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    import eppm_tpu_torch  # noqa: F401  (fails outside a checkout)
-
     t0 = time.perf_counter()
     dev = torch.device("cuda", 0)
 
@@ -2235,6 +2278,7 @@ def main() -> int:
     timed(phase_agreement, dev)
     timed(phase_dossier, dev)
     timed(phase_graphs, dev)
+    timed(phase_programs, dev)
     kernels = []
     for name, (source, replaces, path) in SOURCES.items():
         r = rows[name]

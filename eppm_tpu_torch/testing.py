@@ -1,6 +1,8 @@
-"""Data made from a seed for the port's checks: ``chip_smoke.py`` on the
-card and the tests on the CPU build it here, so the two hold the same
-inputs."""
+"""Data made from a seed for the port's checks and measurements:
+``chip_smoke.py`` and the measurement programs (``eppm_tpu_torch/bench``)
+on the card and the tests on the CPU build it here, so all of them hold
+the same inputs.  Every pair is synthetic: a smooth seeded texture and a
+known integer translation of it."""
 
 from __future__ import annotations
 
@@ -10,7 +12,36 @@ import torch
 from .config import DEFAULT_CONFIG
 from .ops import match
 
-__all__ = ["dark_rows"]
+__all__ = ["texture", "shifted_pair", "dark_rows"]
+
+
+def texture(h: int, w: int, seed: int) -> np.ndarray:
+    """Smooth float32 RGB texture in [0, 1]: seeded noise on a grid 8x
+    coarser, upsampled bicubically."""
+    rng = np.random.default_rng(seed)
+    small = torch.from_numpy(
+        rng.random((3, h // 8 + 3, w // 8 + 3)).astype(np.float32))
+    big = torch.nn.functional.interpolate(
+        small[None], size=(8 * (h // 8 + 3), 8 * (w // 8 + 3)),
+        mode="bicubic", align_corners=False)[0]
+    return big.clamp(0, 1)[:, :h, :w].permute(1, 2, 0).numpy()
+
+
+def shifted_pair(h: int, w: int, dx: int, dy: int, seed: int,
+                 dark: bool = False):
+    """uint8 (frame1, frame2) with frame1(p) = frame2(p + (dx, dy)): the
+    true flow from frame 1 to frame 2 is (dx, dy) wherever p + (dx, dy)
+    lies in the frame.  ``dark``: the scene's left third and a band in
+    its lower half are black."""
+    m = max(abs(dx), abs(dy)) + 8
+    big = (texture(h + 2 * m, w + 2 * m, seed) * 255).astype(np.uint8)
+    if dark:
+        bh, bw = big.shape[0], big.shape[1]
+        big[:, : bw // 3] = 0
+        big[bh // 2 :, bw // 2 : bw // 2 + 20] = 0
+    f2 = big[m : m + h, m : m + w]
+    f1 = big[m + dy : m + dy + h, m + dx : m + dx + w]
+    return np.ascontiguousarray(f1), np.ascontiguousarray(f2)
 
 
 def dark_rows(device="cpu"):
