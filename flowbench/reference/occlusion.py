@@ -1,0 +1,184 @@
+"""Coarse-level occlusion reconstruction (counterpart of the orchestration
+half of ``eppm_tpu/ops/pallas_wmf.py``, lines 614-863: the JAX package
+keeps it beside its Pallas kernel; here the kernel module holds only the
+kernel and this module the chain that calls it).
+
+Default order (``RefineConfig.wmf_fill_first``): fill the LR-invalidated
+holes from the 4 scan directions, let frame-2 evidence re-decide holes
+that are visible there (photometric arbitration), a second fill pass for
+the corners no direction reaches, one frozen-valid WMF polish per
+dilation (kernel C), then 3x3 median majority rounds over the holes.
+The legacy order (``wmf_fill_first=False``, the reference's schedule,
+compute_flow .cpp:236-243): ``wmf_coarse_iters`` Jacobi iterations of
+the WMF over the holes (kernel C), then one hole fill.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .config import FLT_MAX, INVALID_LOCATION, RefineConfig
+from ._util import grid
+from .cost import make_patch_stack, patch_cost_stack
+from .dense import median3
+from .refine import fill_holes, weighted_median_filter
+
+__all__ = ["wmf_polish_occlusions", "coarse_occlusion_reconstruct"]
+
+
+def _photometric_arbitrate(
+    tx, ty, ftx, fty, cands, packs, cost_cfg, thresh: float, orig,
+):
+    """Re-decide each hole's fill by the exact patch cost where the scene
+    is visible in frame 2 (``eppm_tpu/ops/pallas_wmf.py::
+    _photometric_arbitrate``).  Candidates: the 4 directional fill sources
+    (offsets ROUNDED here, where the fill truncates) and the pixel's own
+    pre-LR match, admitted only where a directional source agrees with it
+    within 2 px.  A hole adopts the cheapest candidate when its cost is
+    below ``thresh``."""
+    p1, p2 = packs
+    h, w = tx.shape
+    h2, w2 = p2.shape[0], p2.shape[1]
+    ys, xs = grid(h, w, tx.device)
+
+    fields = []
+    for found, gox, goy in cands:
+        ctx = xs + torch.round(gox).to(torch.int32)
+        cty = ys + torch.round(goy).to(torch.int32)
+        fields.append((found, ctx, cty))
+    if orig is not None:
+        otx, oty = orig
+        agree = torch.zeros((h, w), dtype=torch.bool, device=tx.device)
+        for found, ctx, cty in fields:
+            d = torch.maximum((ctx - otx).abs(), (cty - oty).abs())
+            agree = agree | (found & (d <= 2))
+        fields.append((agree, otx, oty))
+
+    txs = torch.stack([f[1] for f in fields])
+    tys = torch.stack([f[2] for f in fields])
+    offs = cost_cfg.tap_offsets
+    stack2 = make_patch_stack(p2, offs)
+    costs = patch_cost_stack(p1, stack2, txs, tys, cost_cfg, offs)
+    masked = []
+    for k, (found, ctx, cty) in enumerate(fields):
+        inb = (ctx >= 0) & (ctx < w2) & (cty >= 0) & (cty < h2)
+        masked.append(torch.where(found & inb, costs[k], FLT_MAX))
+    costs = torch.stack(masked)
+    cmin = costs.min(dim=0).values
+    kbest = torch.argmin(costs, dim=0)  # first minimum
+    btx = torch.gather(txs, 0, kbest[None])[0]
+    bty = torch.gather(tys, 0, kbest[None])[0]
+
+    hole = (tx < 0) | (ty < 0)
+    use = hole & (cmin < thresh)
+    return torch.where(use, btx, ftx), torch.where(use, bty, fty)
+
+
+def wmf_polish_occlusions(
+    tx, ty, img, cfg: RefineConfig = RefineConfig(), num_iter: int = 1,
+    dilations: Tuple[int, ...] = (1,),
+    fill_patch_radius: int = 0,
+    accept_thresh: float = 0.0,
+    fill_linear_baseline: int = 0,
+    fill_linear_slope_tol: float = 0.3,
+    packs=None,
+    cost_cfg=None,
+    fill_cost_thresh: float = 0.0,
+    orig=None,
+):
+    """Fill-then-polish occlusion reconstruction
+    (``eppm_tpu/ops/pallas_wmf.py::wmf_polish_occlusions``)."""
+    arbitrate = (
+        packs is not None and cost_cfg is not None and fill_cost_thresh > 0
+    )
+    if arbitrate:
+        ftx, fty, cands = fill_holes(
+            tx, ty, img, patch_radius=fill_patch_radius,
+            linear_baseline=fill_linear_baseline,
+            linear_slope_tol=fill_linear_slope_tol,
+            return_candidates=True,
+        )
+        ftx, fty = _photometric_arbitrate(
+            tx, ty, ftx, fty, cands, packs, cost_cfg, fill_cost_thresh, orig,
+        )
+    else:
+        ftx, fty = fill_holes(
+            tx, ty, img, patch_radius=fill_patch_radius,
+            linear_baseline=fill_linear_baseline,
+            linear_slope_tol=fill_linear_slope_tol,
+        )
+    # corners no scan direction reaches keep INVALID after one pass; a
+    # second single-pixel fill over the first pass's output reaches them
+    h, w = ftx.shape
+    sent = INVALID_LOCATION // 2
+    ftx2, fty2 = fill_holes(ftx, fty, img)
+    ftx = torch.where(ftx > sent, ftx, ftx2)
+    fty = torch.where(fty > sent, fty, fty2)
+    # last resort (whole image occluded): zero offset
+    ys, xs = grid(h, w, tx.device)
+    ftx = torch.where(ftx > sent, ftx, xs)
+    fty = torch.where(fty > sent, fty, ys)
+    hole = (tx < 0) | (ty < 0)
+    cur = (ftx, fty)
+    for d in dilations:
+        nxt = weighted_median_filter(
+            tx, ty, img, cfg, num_iter, only_occlusion=True,
+            polish_init=cur, dilation=d,
+        )
+        if d > 1 and accept_thresh > 0:
+            agree = ((nxt[0] - cur[0]).abs().to(torch.float32)
+                     <= accept_thresh) & (
+                (nxt[1] - cur[1]).abs().to(torch.float32) <= accept_thresh)
+            keep = hole & ~agree
+            nxt = (torch.where(keep, cur[0], nxt[0]),
+                   torch.where(keep, cur[1], nxt[1]))
+        cur = nxt
+    return cur
+
+
+def coarse_occlusion_reconstruct(tx, ty, img, rcfg: RefineConfig,
+                                 packs=None, cost_cfg=None, orig=None):
+    """The coarse level's occlusion chain
+    (``eppm_tpu/ops/pallas_wmf.py::coarse_occlusion_reconstruct``).
+    Under ``wmf_fill_first``: one frozen-valid polish iteration per
+    dilation (one iteration is that pass's fixed point), then median
+    majority rounds over the holes.  Otherwise the legacy order:
+    ``wmf_coarse_iters`` occlusion-only Jacobi iterations, then
+    ``fill_holes``.  Either way the optional full-image WMF passes
+    follow."""
+    if rcfg.wmf_fill_first:
+        hole = (tx < 0) | (ty < 0)
+        tx, ty = wmf_polish_occlusions(
+            tx, ty, img, rcfg, num_iter=1,
+            dilations=rcfg.wmf_polish_dilations,
+            fill_patch_radius=rcfg.fill_patch_radius,
+            accept_thresh=rcfg.wmf_polish_accept_thresh,
+            fill_linear_baseline=rcfg.fill_linear_baseline,
+            fill_linear_slope_tol=rcfg.fill_linear_slope_tol,
+            packs=packs, cost_cfg=cost_cfg,
+            fill_cost_thresh=rcfg.fill_photometric_thresh,
+            orig=orig,
+        )
+        if rcfg.fill_median_rounds > 0:
+            ys, xs = grid(tx.shape[0], tx.shape[1], tx.device)
+            ox = (tx - xs).to(torch.float32)
+            oy = (ty - ys).to(torch.float32)
+            for _ in range(rcfg.fill_median_rounds):
+                ox = torch.where(hole, median3(ox), ox)
+                oy = torch.where(hole, median3(oy), oy)
+            tx = torch.where(hole, ox.to(torch.int32) + xs, tx)
+            ty = torch.where(hole, oy.to(torch.int32) + ys, ty)
+    else:
+        tx, ty = weighted_median_filter(
+            tx, ty, img, rcfg, num_iter=rcfg.wmf_coarse_iters,
+            only_occlusion=True,
+        )
+        tx, ty = fill_holes(tx, ty, img)
+    if rcfg.wmf_coarse_full_iters > 0:
+        tx, ty = weighted_median_filter(
+            tx, ty, img, rcfg, num_iter=rcfg.wmf_coarse_full_iters,
+            only_occlusion=False,
+        )
+    return tx, ty
