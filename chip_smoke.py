@@ -155,10 +155,11 @@ final line is not printed):
    exits 0 (no CUDA graph captured or evicted inside a timed window),
    prints JSON lines that parse (logged here), and meets its gates: the
    throughput pair's warp error under 0.5x the zero-flow one and the
-   synthetic EPE under 1, every table shape's warp gate, the stages'
-   shares of the replayed pair (each against the pair replayed right
-   after it) summing to within 10% of 1 and their flow identical to the
-   pair's, the warm stream's EPE under 1.
+   synthetic EPE under 1, every table shape's warp gate, the stage spans
+   of a traced replay of the pair tiling its ``graph`` span (within 1%),
+   that span within 5% of CUDA events around the same replay, the traced
+   flow identical to the untraced one and the untraced graph holding no
+   mark node, the warm stream's EPE under 1.
 
 Each phase logs its seconds.  The line before the last is one JSON object
 with a row per kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -2217,8 +2218,9 @@ def phase_programs(dev) -> None:
 
     out = run_program("profile_stages", ["1080x1920"])
     summary = out[-1]
-    check(summary["identical_to_full"]
-          and abs(summary["sum_over_full"] - 1.0) <= 0.10,
+    check(summary["identical_to_untraced"] and summary["uncovered"] <= 0.01
+          and abs(summary["graph_over_events"] - 1.0) <= 0.05
+          and summary["untraced_nodes"]["mark"] == 0,
           f"profile_stages: {summary}")
 
     out = run_program("profile_match", ["1080x1920"])

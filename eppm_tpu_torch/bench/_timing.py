@@ -2,12 +2,10 @@
 flags every program takes, the timer of a stage, the timers of a whole
 pair, and the quality gates.
 
-* A stage (``StageTimer``) is captured as a CUDA graph through
-  ``graphs.capture``, the counterpart of the JAX scripts' ``jax.jit`` of
-  a stage, on static copies of its inputs; the graph is replayed once as
-  a warm-up, then ``reps`` times, each replay between two CUDA events;
-  the outputs are cloned and the graph dropped, so that the stage graphs
-  of a 4K pair do not pile up.
+* A stage is a span of a traced replay (``utils/trace.py``): the pair,
+  or the chain of rows (``Rows``), is captured as one CUDA graph with
+  tracing on, and ``traced_replays`` replays it between CUDA events and
+  collects the spans the marks inside it stamped.
 * A whole pair goes through ``pipeline.compute_flow_jit``, the path
   ``EPPMFlow`` and the command line run: ``device_ms`` takes CUDA events
   around each call, ``e2e_ms`` the host clock around the call and the
@@ -33,10 +31,12 @@ import torch
 from .. import graphs
 from ..eval_report import card_label
 from ..metrics import flow_error, warp_error
+from ..utils import trace
 
 __all__ = ["add_common", "device_of", "parse_size", "frames",
-           "window", "event_ms", "summary", "StageTimer", "warp_gate",
-           "interior_epe", "card_label", "WARP_GATE", "EPE_BORDER"]
+           "window", "event_ms", "summary", "Row", "Rows", "traced_replays",
+           "warp_gate", "interior_epe", "card_label", "WARP_GATE",
+           "EPE_BORDER"]
 
 # bench.py's gates: the flow's warp error under half the zero-flow one,
 # the EPE over the pixels 16 px inside the frame
@@ -117,13 +117,6 @@ def summary(ms: Sequence[float]) -> Dict[str, float]:
             "max_ms": max(ms), "n": len(ms)}
 
 
-class _Slot:
-    """The place of a tensor argument in a stage's arguments."""
-
-    def __init__(self, i: int):
-        self.name = f"t{i}"
-
-
 def _tree_map(fn, x, leaf=torch.Tensor):
     """``fn`` on every ``leaf`` of ``x``, a leaf or a nested list or tuple
     of leaves and other values (kept as they are)."""
@@ -140,8 +133,8 @@ def _shapes(x):
 
 @dataclasses.dataclass
 class Row:
-    """One stage: its name, the shapes of its outputs and, on the card,
-    its replays' ms."""
+    """One row: its name, the shapes of its outputs and, on the card, the
+    ms of its span in each replay."""
 
     name: str
     shapes: object
@@ -154,44 +147,40 @@ class Row:
         return out
 
 
-class StageTimer:
-    """``timer(name, fn, *args)`` returns ``fn(*args)`` and records a
-    ``Row``.  On the card it captures the CUDA graph of the call
-    (``graphs.capture``: static copies of the tensor arguments, which may
-    sit in nested lists and tuples, an eager warm-up call on a side stream
-    that builds the kernels and tables, then the capture), replays it
-    once, times ``reps`` replays by CUDA events, clones the outputs and
-    drops the graph.  On the CPU it calls ``fn`` and times nothing."""
+class Rows:
+    """``rows(name, fn, *args)`` returns ``fn(*args)`` and keeps a ``Row``
+    of it (a name seen again keeps its first place); with tracing on the
+    call is a stage of its own, between a mark of its name and the end of
+    that stage, so that a traced replay times it."""
 
-    def __init__(self, device: torch.device, reps: int = 5):
-        self.device = device
-        self.reps = reps
-        self.rows: List[Row] = []
+    def __init__(self):
+        self._rows: Dict[str, Row] = {}
+
+    @property
+    def rows(self) -> List[Row]:
+        return list(self._rows.values())
 
     def __call__(self, name: str, fn: Callable, *args):
-        if self.device.type != "cuda":
-            out = fn(*args)
-            self.rows.append(Row(name, _shapes(out)))
-            return out
-        tensors: Dict[str, torch.Tensor] = {}
-
-        def slot(t):
-            s = _Slot(len(tensors))
-            tensors[s.name] = t
-            return s
-
-        spec = _tree_map(slot, args)
-
-        def call(**static):
-            return fn(*_tree_map(lambda s: static[s.name], spec, _Slot))
-
-        entry = graphs.capture(("stage", name), call, tensors)
-        entry.run()
-        ms = event_ms(entry.run, self.reps)
-        out = _tree_map(torch.clone, entry.output)
-        del entry
-        self.rows.append(Row(name, _shapes(out), ms))
+        trace.mark(name)
+        out = fn(*args)
+        trace.mark(None)
+        self._rows[name] = Row(name, _shapes(out))
         return out
+
+
+def traced_replays(entry: "graphs.FlowGraph", reps: int):
+    """``reps`` replays of ``entry``, a graph captured with tracing on,
+    each between two CUDA events (the graph alone: no copy in or out):
+    (each replay's ms by the events, its ``graph`` span, the collected
+    trace).  What the tracer held before is dropped."""
+    trace.collect()
+    ms = event_ms(entry.run, reps)
+    tr = trace.collect()
+    spans = sorted(tr.named("graph"), key=lambda s: s.start_ns)
+    if len(spans) != reps or tr.lost:
+        raise RuntimeError(f"{len(spans)} graph spans of {reps} replays "
+                           f"({tr.lost} lost)")
+    return ms, spans, tr
 
 
 def warp_gate(f1: np.ndarray, f2: np.ndarray, flow: np.ndarray):

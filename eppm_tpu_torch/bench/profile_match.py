@@ -17,10 +17,11 @@ ring.  The tiny rows exist where the coarse level has mini levels below
 it.  The pair is ``testing.shifted_pair(h, w, 5, 3)``, 1080x1920 by
 default.
 
-On the card each row is a CUDA graph timed over 5 replays
-(``_timing.StageTimer``), one JSON line a row (median, least, most ms,
-outputs' shapes), then a summary line; with ``--device cpu`` the rows
-hold the shapes and no time.
+On the card the rows are captured as one CUDA graph with tracing on, each
+row a stage of its own (``_timing.Rows``), and the graph is replayed 5
+times (``_timing.traced_replays``); one JSON line a row (median, least,
+most ms of its span, outputs' shapes), then a summary line; with
+``--device cpu`` the rows hold the shapes and no time.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from typing import Callable, List, Optional
 import torch
 
 from ..config import DEFAULT_CONFIG, EPPMConfig
-from ..graphs import GRAPHS
+from ..graphs import GRAPHS, capture
 from ..ops._util import grid
 from ..ops.cost import make_patch_stack, patch_cost_stack
 from ..ops.dense import center_out_offsets
@@ -45,7 +46,11 @@ from ..ops.match import (_as_flow, _int_flow, _make_mini_cost, _mini_levels,
 from ..ops.resize import bilinear_resize
 from ..pipeline import prepare_pyramids
 from ..testing import shifted_pair
+from ..utils import trace
 from . import _timing as T
+
+# replays of the rows' graph timed
+REPS = 5
 
 
 def match_stages(img1: torch.Tensor, img2: torch.Tensor, cfg: EPPMConfig,
@@ -140,13 +145,27 @@ def main(argv: Optional[List[str]] = None) -> int:
     GRAPHS.clear()
     img1, img2 = T.frames(shifted_pair(h, w, 5, 3, args.seed), device)
 
-    timer = T.StageTimer(device)
-    match_stages(img1, img2, cfg, timer)
-    for row in timer.rows:
+    rows = T.Rows()
+    if device.type != "cuda":
+        match_stages(img1, img2, cfg, rows)
+    else:
+        trace.enable()
+        try:
+            entry = capture(("profile_match", h, w), lambda a, b: (
+                match_stages(a, b, cfg, rows)), {"a": img1, "b": img2})
+            entry.run()
+            _, graph_spans, tr = T.traced_replays(entry, REPS)
+        finally:
+            trace.disable()
+        ids = {g.id for g in graph_spans}
+        for row in rows.rows:
+            row.ms = [s.ms for s in tr.named(row.name) if s.parent in ids]
+        del entry
+    for row in rows.rows:
         print(json.dumps(row.line()), flush=True)
     top = cfg.pyramid.level_dims(h, w)[-1]
     print(json.dumps({"program": "profile_match", "shape": [h, w],
-                      "coarse": list(top), "rows": len(timer.rows),
+                      "coarse": list(top), "rows": len(rows.rows),
                       "device": T.card_label(device), "pairs":
                       f"synthetic (testing.shifted_pair, seed {args.seed})"}))
     return 0

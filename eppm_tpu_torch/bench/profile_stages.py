@@ -4,32 +4,24 @@ package's ``profile_stages.py``).
     python -m eppm_tpu_torch.bench.profile_stages [HxW] [--set k=v]
         [--seed N]
 
-``stages`` runs the stages ``pipeline.compute_flow`` runs under the
-config, in its order, each through a stage runner: prepare_pyramids of
-both frames; the coarse match (``match_coarse_bidi``, or under
-``match_engine=patchmatch`` both PatchMatch directions drawing from the
-default key, made outside the stage as ``compute_flow_jit`` makes it);
-``lr_check``, ``outlier_removal``, ``coarse_occlusion_reconstruct``;
-then at each finer level the upsample, refine pass 1, the median and
-pass 2 (or the gathered refine), the smoothing; then the optional
-subpixel stage and the final smoothing.  On the CPU its flow is
-``compute_flow``'s, bit for bit.
-
-On the card each stage is a CUDA graph timed over 5 replays
-(``_timing.StageTimer``), and right after it 2 replays of the whole
-pair (``compute_flow_jit``, captured first); one JSON line a stage
-(median, least, most ms, outputs' shapes, the pair's median beside it
-and the stage's share of it), a ``FULL compute_flow_jit`` line (all the
-pair's replays), then a summary line: the sum of the stages' medians
-beside FULL's, and the sum of the shares.  It exits 1 unless the shares
-sum to within 10% of 1 and the stages' flow equals the replayed pair's.
-Each share is taken against the pair timed within a second of it: the
-card's speed can change by ~15% for seconds at a time (the same graph
-replayed in 166.7 and in 191.5 ms), which would otherwise count as a
-missing or a doubled stage.  The pair is ``testing.shifted_pair(h, w,
-5, 3)``, 1080x1920 by default.  With ``--device cpu`` the lines hold the
-stages' shapes and no time, and the summary whether the flow equals
-``compute_flow``'s.
+On the card the real pair is timed, not a copy of its stages: the
+untraced pair's graph is captured and replayed through
+``compute_flow_jit`` and its nodes counted (``FlowGraph.nodes``); then,
+with tracing on (``utils/trace.py``), the traced pair's graph is
+captured, replayed once, then replayed 5 times, each replay between two
+CUDA events (``_timing.traced_replays``), and the stages are the spans
+that ``compute_flow``'s marks stamp inside each replay.  One JSON line a
+stage (median, least, most ms, its share of the ``graph`` span, its
+nodes by type), a ``graph`` line (the span beside the events), then a
+summary line: the untraced graph's nodes, the share of the ``graph``
+span that its stages leave uncovered (its self time; the stages tile it
+where that is within ``TILE_TOLERANCE``), the ``graph`` span over the
+events, and whether the traced flow equals the untraced one.  It exits 1
+unless the stages tile, the span is within ``EVENT_TOLERANCE`` of the
+events and the flows are equal.  The pair is ``testing.shifted_pair(h,
+w, 5, 3)``, 1080x1920 by default.  With ``--device cpu`` the stages are
+marked on the host clock: the lines hold their names and no time, and
+the summary whether the traced flow equals the untraced one.
 """
 
 from __future__ import annotations
@@ -38,108 +30,24 @@ import argparse
 import json
 import statistics
 import sys
-from typing import Callable, List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
 from ..cli import apply_overrides
-from ..config import DEFAULT_CONFIG, EPPMConfig
-from ..graphs import GRAPHS
-from ..ops.cuda_smooth import flow_smoothing_auto
-from ..ops.dense import dense_refine_flow, median3_flow
-from ..ops.match import match_coarse_bidi
-from ..ops.occlusion import coarse_occlusion_reconstruct
-from ..ops.patchmatch import ThreefrySampler, patchmatch
-from ..ops.prng import prng_key, split
-from ..ops.refine import (blf_refine_flow, lr_check, nnf_to_flow,
-                          outlier_removal)
-from ..ops.resize import bilinear_resize
-from ..ops.subpixel import subpixel_refine
-from ..pipeline import compute_flow, compute_flow_jit, prepare_pyramids
+from ..config import DEFAULT_CONFIG
+from ..graphs import GRAPHS, graph_key
+from ..pipeline import compute_flow_jit
 from ..testing import shifted_pair
+from ..utils import trace
 from . import _timing as T
 
-# the stages' shares of the replayed pair may sum to 1 +- this at most
-SUM_TOLERANCE = 0.10
-# replays of the whole pair timed after each stage's
-FULL_REPS = 2
-
-
-def stages(img1: torch.Tensor, img2: torch.Tensor, cfg: EPPMConfig,
-           run: Callable) -> torch.Tensor:
-    """``compute_flow(img1, img2, cfg)`` stage by stage, each stage as
-    ``run(name, fn, *args)``, which returns ``fn(*args)``."""
-    chunk = cfg.cost_tap_chunk
-    (levels1, packs1), (levels2, packs2) = run(
-        "prepare_pyramids x2",
-        lambda a, b: (prepare_pyramids(a, cfg), prepare_pyramids(b, cfg)),
-        img1, img2)
-    top = len(packs1) - 1
-    ch, cw = packs1[top].shape[:2]
-    if cfg.match_engine == "dense":
-        fwd, bwd = run(
-            f"match_coarse_bidi ({ch}x{cw})",
-            lambda l1, l2, p1, p2: match_coarse_bidi(
-                l1, l2, cfg.cost, cfg.match, p1, p2, tap_chunk=chunk),
-            levels1[top], levels2[top], packs1[top], packs2[top])
-    else:
-        def both(p1, p2, key):
-            s1, s2 = (ThreefrySampler(k) for k in split(key))
-            return (patchmatch(p1, p2, s1, cfg.patchmatch, cfg.cost, chunk),
-                    patchmatch(p2, p1, s2, cfg.patchmatch, cfg.cost, chunk))
-
-        fwd, bwd = run(f"patchmatch x2 ({ch}x{cw})", both, packs1[top],
-                       packs2[top], prng_key(cfg.seed, img1.device))
-    otx, oty = fwd[0], fwd[1]  # pre-LR matches: arbitration candidates
-    tx1, ty1, c1, *_ = run(
-        "lr_check", lambda *a: lr_check(*a, cfg.lr_thresh), *fwd, *bwd)
-    tx1, ty1, c1 = run("outlier_removal",
-                       lambda *a: outlier_removal(*a, cfg.refine),
-                       tx1, ty1, c1)
-    flow = run(
-        "coarse_occlusion_reconstruct + nnf_to_flow",
-        lambda tx, ty, img, p1, p2, ox, oy: nnf_to_flow(
-            *coarse_occlusion_reconstruct(
-                tx, ty, img, cfg.refine, packs=(p1, p2), cost_cfg=cfg.cost,
-                orig=(ox, oy))),
-        tx1, ty1, levels1[top], packs1[top], packs2[top], otx, oty)
-
-    ratio_up = 1.0 / cfg.pyramid.ratio
-    for lvl in range(top - 1, -1, -1):
-        oh, ow = packs1[lvl].shape[0], packs1[lvl].shape[1]
-        at = f"L{lvl} ({oh}x{ow})"
-        flow = run(f"upsample -> {at}", lambda f: bilinear_resize(
-            f, oh, ow, ratio_up) * ratio_up, flow)
-        p1, p2 = packs1[lvl], packs2[lvl]
-        if cfg.refine_impl == "dense":
-            n = cfg.dense_refine_passes
-            fit = cfg.dense_subpixel_fit and lvl == 0
-            flow = run(f"dense_refine {at} pass 1", lambda f, a, b: (
-                dense_refine_flow(
-                    f, a, b, cfg.cost, cfg.dense_search_radius,
-                    cfg.dense_cand_shape, cfg.warp_dtype,
-                    cfg.dense_pass1_planes, subpixel_fit=fit and n == 1,
-                    subpixel_min_curv=cfg.dense_subpixel_min_curv,
-                    tap_chunk=chunk)), flow, p1, p2)
-            for i in range(n - 1):
-                flow = run(f"dense_refine {at} pass {i + 2} (+median)",
-                           lambda f, a, b: dense_refine_flow(
-                               median3_flow(f), a, b, cfg.pass2_cost,
-                               cfg.dense_search_radius, cfg.pass2_cand_shape,
-                               cfg.warp_dtype, cfg.dense_pass2_planes,
-                               subpixel_fit=fit and i == n - 2,
-                               subpixel_min_curv=cfg.dense_subpixel_min_curv,
-                               tap_chunk=chunk), flow, p1, p2)
-        else:
-            flow = run(f"blf_refine_flow {at}", lambda f, a, b:
-                       blf_refine_flow(f, a, b, cfg.cost, chunk), flow, p1, p2)
-        flow = run(f"flow_smoothing {at}", lambda f, img:
-                   flow_smoothing_auto(f, img, cfg.refine), flow, levels1[lvl])
-    if cfg.subpixel_refine:
-        flow = run("subpixel_refine", lambda f, a, b: subpixel_refine(
-            f, a, b, cfg.subpixel), flow, levels1[0], levels2[0])
-    return run("flow_smoothing final L0", lambda f, img: flow_smoothing_auto(
-        f, img, cfg.refine), flow, levels1[0])
+# replays of the traced pair timed
+REPS = 5
+# the stages may leave at most this share of the graph span uncovered
+TILE_TOLERANCE = 0.01
+# the graph span may differ from the events around its replay by this share
+EVENT_TOLERANCE = 0.05
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -154,53 +62,80 @@ def main(argv: Optional[List[str]] = None) -> int:
     h, w = T.parse_size(args.size)
     GRAPHS.clear()
     img1, img2 = T.frames(shifted_pair(h, w, 5, 3, args.seed), device)
-
-    timer = T.StageTimer(device)
     out = {"program": "profile_stages", "shape": [h, w],
            "device": T.card_label(device),
            "pairs": f"synthetic (testing.shifted_pair, seed {args.seed})",
            "overrides": list(args.sets)}
+
+    plain = compute_flow_jit(img1, img2, cfg=cfg)
+    if device.type == "cuda":
+        untraced = GRAPHS.entries[graph_key(img1, img2, cfg, False, None,
+                                            None)]
+        out["untraced_nodes"] = untraced.nodes()["total"]
+    trace.enable()
+    try:
+        traced = compute_flow_jit(img1, img2, cfg=cfg)
+        if device.type == "cuda":
+            entry = GRAPHS.entries[graph_key(img1, img2, cfg, False, None,
+                                             None)]
+            nodes = entry.nodes()
+            ms, graphs_, tr = T.traced_replays(entry, REPS)
+        else:
+            tr = trace.collect()
+    finally:
+        trace.disable()
+    same = bool(torch.equal(traced, plain))
+    out["identical_to_untraced"] = same
     if device.type != "cuda":
-        flow = stages(img1, img2, cfg, timer)
-        for row in timer.rows:
-            print(json.dumps(row.line()))
-        same = bool(torch.equal(flow, compute_flow(img1, img2, cfg)))
-        out.update(stages=len(timer.rows), identical_to_compute_flow=same)
+        for s in tr.spans:
+            if not s.host:
+                print(json.dumps({"stage": s.name}))
         print(json.dumps(out))
         return 0 if same else 1
 
-    full = compute_flow_jit(img1, img2, cfg=cfg)  # the pair's graph
-    full_ms: List[List[float]] = []
-
-    def run(name, fn, *args):
-        result = timer(name, fn, *args)
-        with T.window("profile_stages FULL"):
-            full_ms.append(T.event_ms(
-                lambda: compute_flow_jit(img1, img2, cfg=cfg), FULL_REPS))
-        return result
-
-    flow = stages(img1, img2, cfg, run)
-    shares = []
-    for row, f in zip(timer.rows, full_ms):
-        shares.append(statistics.median(row.ms) / statistics.median(f))
-        print(json.dumps({**row.line(), "full_median_ms": statistics.median(
-            f), "share": shares[-1]}), flush=True)
-    every = [m for f in full_ms for m in f]
-    print(json.dumps({"stage": "FULL compute_flow_jit", **T.summary(every)}))
-    same = bool(torch.equal(flow, full))
-    out.update(stages=len(timer.rows),
-               sum_ms=sum(statistics.median(r.ms) for r in timer.rows),
-               full_ms=statistics.median(every), sum_over_full=sum(shares),
-               identical_to_full=same)
-    ok = same and abs(sum(shares) - 1.0) <= SUM_TOLERANCE
-    if not ok:
-        out["error"] = ("the stages' flow differs from the replayed pair's"
-                        if not same else
-                        f"the stages' shares of the pair sum to "
-                        f"{sum(shares):.3f}, not within {SUM_TOLERANCE:.0%} "
-                        "of 1")
+    kids = {g.id: sorted(tr.children(g), key=lambda s: s.start_ns)
+            for g in graphs_}
+    names = [s.name for s in kids[graphs_[0].id]]
+    by_name: Dict[str, List[float]] = {n: [] for n in names}
+    for g in graphs_:
+        for s in kids[g.id]:
+            by_name[s.name].append(s.ms)
+    graph_ms = [g.ms for g in graphs_]
+    stage_nodes = {}
+    for name, counts in nodes["stages"] or ():
+        stage_nodes.setdefault(name, dict.fromkeys(counts, 0))
+        for k, v in counts.items():
+            stage_nodes[name][k] += v
+    for name in names:
+        line = {"stage": name, **T.summary(by_name[name]),
+                "share": statistics.median(by_name[name])
+                / statistics.median(graph_ms)}
+        if name in stage_nodes:
+            line["nodes"] = stage_nodes[name]
+        print(json.dumps(line), flush=True)
+    print(json.dumps({"stage": "graph", **T.summary(graph_ms),
+                      "events": T.summary(ms)}))
+    # the graph span's self time: what its stages leave uncovered
+    uncovered = max(tr.self_ns(g) / g.ns for g in graphs_)
+    ratio = statistics.median(g / e for g, e in zip(graph_ms, ms))
+    out.update(stages=len(names), traced_nodes=nodes["total"],
+               sum_ms=sum(statistics.median(v) for v in by_name.values()),
+               graph_ms=statistics.median(graph_ms),
+               events_ms=statistics.median(ms), uncovered=uncovered,
+               graph_over_events=ratio, drift_ns=tr.drift_ns)
+    errors = []
+    if not same:
+        errors.append("the traced flow differs from the untraced one")
+    if uncovered > TILE_TOLERANCE:
+        errors.append(f"the stages leave {uncovered:.3%} of the graph span "
+                      "uncovered")
+    if abs(ratio - 1.0) > EVENT_TOLERANCE:
+        errors.append(f"the graph span is {ratio:.3f} of the events around "
+                      "its replay")
+    if errors:
+        out["error"] = "; ".join(errors)
     print(json.dumps(out))
-    return 0 if ok else 1
+    return 1 if errors else 0
 
 
 if __name__ == "__main__":

@@ -29,7 +29,13 @@ devices 0..n-1 (it raises where there are fewer; on one card, one CUDA
 graph per mesh and shape, replayed), or with ``--device cpu`` of the CPU
 named n times; one pair at a time, so B is 1.  The
 single-pair and stream reports are one JSON line; the ``--eval-dir``
-report is indented unless ``--json``.
+report is indented unless ``--json``.  ``--trace FILE`` switches the
+tracer on (``utils/trace.py``) and writes the run's spans to FILE as a
+Chrome trace: the host threads' spans (in the stream ``stream.decode``,
+``stream.upload``, ``stream.flow``, ``stream.enqueue``, the wait on the
+full queue, and the drain thread's ``stream.readback`` and
+``stream.write``; the entry's ``entry.*`` and ``capture``), and each
+pair's ``graph`` and stage spans on a device lane, on the host clock.
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ from .ops.color import flow_to_color
 from .parallel import compute_flow_sharded, make_mesh
 from .graphs import GRAPHS
 from .pipeline import compute_flow_jit
+from .utils import trace
 from .utils.timing import DeviceTimer
 
 __all__ = ["main", "apply_overrides", "PRESETS"]
@@ -276,14 +283,16 @@ def stream(frames_dir: str, out_dir: Optional[str], cfg: EPPMConfig,
             item = fetch.get()
             if item is None:
                 return
-            name, fl = item
+            name, fl, pair = item
             try:
-                out = fl.cpu().numpy()
-                if not exact:
-                    out = out.astype(np.float32) * np.float32(1.0 / 64.0)
+                with trace.span("stream.readback", pair=pair):
+                    out = fl.cpu().numpy()
+                    if not exact:
+                        out = out.astype(np.float32) * np.float32(1.0 / 64.0)
                 if out_dir:
-                    write_flo(os.path.join(
-                        out_dir, os.path.splitext(name)[0] + ".flo"), out)
+                    with trace.span("stream.write", pair=pair):
+                        write_flo(os.path.join(
+                            out_dir, os.path.splitext(name)[0] + ".flo"), out)
             except Exception as e:  # raised in the caller after the join
                 errors.append(e)
 
@@ -293,14 +302,21 @@ def stream(frames_dir: str, out_dir: Optional[str], cfg: EPPMConfig,
     t0 = time.perf_counter()
     try:
         for start in range(0, len(paths), STREAM_CHUNK):
-            frames = read_image_batch(paths[start : start + STREAM_CHUNK])
+            with trace.span("stream.decode"):
+                frames = read_image_batch(paths[start : start + STREAM_CHUNK])
             for k in range(frames.shape[0]):
-                cur = torch.from_numpy(frames[k]).to(device)
+                pair = trace.new_pair()
+                with trace.span("stream.upload", pair=pair):
+                    cur = torch.from_numpy(frames[k]).to(device)
                 if prev is not None:
-                    fl = run(prev, cur, prev_flow)
-                    if temporal:
-                        prev_flow = fl
-                    fetch.put((names[start + k - 1], fl if exact else q16(fl)))
+                    with trace.span("stream.flow", pair=pair):
+                        fl = run(prev, cur, prev_flow)
+                        if temporal:
+                            prev_flow = fl
+                        fl = fl if exact else q16(fl)
+                    # waits while STREAM_WINDOW flows wait for the drain
+                    with trace.span("stream.enqueue", pair=pair):
+                        fetch.put((names[start + k - 1], fl, pair))
                 prev = cur
     finally:
         fetch.put(None)
@@ -360,8 +376,22 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--mesh", metavar="B,Y,X",
                    help="run through the multi-device path on a (batch, y, "
                         "x) mesh of the device's kind")
+    p.add_argument("--trace", metavar="FILE",
+                   help="write the run's spans (host threads, and each "
+                        "pair's stages on the device) as a Chrome trace "
+                        "JSON, which Perfetto opens")
     args = p.parse_args(argv)
+    if not args.trace:
+        return _main(p, args)
+    trace.enable()
+    try:
+        return _main(p, args)
+    finally:
+        trace.disable()
+        trace.write_chrome(args.trace, trace.collect())
 
+
+def _main(p: argparse.ArgumentParser, args) -> int:
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run on the CPU")
     device = torch.device(args.device)

@@ -32,7 +32,20 @@ the eager flow, bit for bit.
 Launch counts: under capture a kernel wrapper's ``launch`` records a
 launch that does not run, so the capture takes its launches back off
 each ``CudaKernel.launches`` and each replay adds them again: the counts
-go on counting launches on the device.  A failed capture or replay
+go on counting launches on the device.  The tracer's counters follow the
+same rule: its marks are launches of a kernel (``ops/cuda_trace.py``),
+and the device sequence that a capture records is registered with the
+tracer at each replay, never at the capture.
+
+Tracing (``utils/trace.py``, when switched on): ``GraphCache.run`` opens
+the host span ``entry`` and a replay ``entry.copy_in``, ``entry.launch``
+(the graph's ``replay()`` call) and ``entry.clone_out``; ``capture``
+opens ``capture`` around a capture, and the captured call begins and ends
+with a mark, so that each replay has a ``graph`` span on the device, with
+``compute_flow``'s stages inside it.  Whether tracing is on is part of
+the key: a traced graph is a capture of its own, and an untraced graph
+holds no mark.  ``FlowGraph.nodes()`` counts a graph's nodes by type, and
+on a traced graph by stage.  A failed capture or replay
 raises with the key; nothing falls back to the eager path.  The cache
 holds ``MAX_GRAPHS`` graphs and evicts the least recently used (logged).
 The multi-device entry, ``parallel.compute_flow_sharded``, keeps its
@@ -51,6 +64,7 @@ from typing import Callable, Dict, Mapping, Optional
 import torch
 
 from .ops._build import CudaKernel
+from .utils import trace
 
 __all__ = ["MAX_GRAPHS", "FlowGraph", "GraphCache", "GRAPHS", "graph_key",
            "tensor_meta", "launch_counts", "take_back_launches"]
@@ -71,10 +85,11 @@ def graph_key(img1: torch.Tensor, img2: torch.Tensor, cfg,
               key: Optional[torch.Tensor]) -> tuple:
     """What a graph of ``compute_flow_jit`` is specialised to: what the
     JAX entry's jit cache keys on (shapes, dtypes, ``cfg``,
-    ``fine_level_wmf``, which optional arguments are given) and the
-    device."""
+    ``fine_level_wmf``, which optional arguments are given), the device
+    and whether tracing is on (a traced graph holds marks)."""
     return (img1.device, tensor_meta(img1), tensor_meta(img2), cfg,
-            bool(fine_level_wmf), tensor_meta(init_flow), key is not None)
+            bool(fine_level_wmf), tensor_meta(init_flow), key is not None,
+            trace.enabled())
 
 
 def launch_counts() -> Dict[CudaKernel, int]:
@@ -104,7 +119,7 @@ class FlowGraph:
     replay by kernel, and the capture's measurements: seconds of the
     warm-up call, of the capture and of the instantiation, the device
     memory allocated at most while they ran and how much of it the pair
-    added."""
+    added; with tracing on, the marks the capture recorded."""
 
     key: tuple
     graph: object
@@ -117,19 +132,22 @@ class FlowGraph:
     max_allocated: int = 0
     pair_bytes: int = 0
     replays: int = 0
+    captured: Optional[trace.Captured] = None
 
     def replay(self, inputs: Mapping[str, Optional[torch.Tensor]]
                ) -> torch.Tensor:
-        for name, buf in self.inputs.items():
-            if buf is not None:
-                buf.copy_(inputs[name])
-        self.run()
-        return self.output.clone()
+        with trace.span("entry.copy_in"):
+            for name, buf in self.inputs.items():
+                if buf is not None:
+                    buf.copy_(inputs[name])
+        with trace.span("entry.launch"):
+            self.run()
+        with trace.span("entry.clone_out"):
+            return self.output.clone()
 
     def run(self) -> None:
         """Replay the graph on what its static inputs hold, leaving the
-        result in ``output`` (the stage timer of ``bench/_timing.py``
-        replays this way, without the copies in and out)."""
+        result in ``output``."""
         try:
             self.graph.replay()
         except Exception as e:
@@ -137,7 +155,28 @@ class FlowGraph:
                                f"failed: {e}") from e
         for k, n in self.launches.items():
             k.launches += n
+        if self.captured is not None:
+            trace.replayed(self.captured)
         self.replays += 1
+
+    def nodes(self) -> dict:
+        """The graph's nodes, counted on demand (``cudaGraphGetNodes``):
+        ``total`` by type (kernel, memcpy, memset, other, and the tracer's
+        marks), and on a traced graph ``stages``: (stage, nodes by type)
+        for the nodes between each mark and the next, in order, the stage
+        being the innermost span open there ("outside" before the first
+        mark); None where the marks found are not the marks captured."""
+        from .ops import cuda_trace
+
+        marks = self.captured.marks if self.captured is not None else ()
+        counts, found = cuda_trace.graph_nodes(self.graph.raw_cuda_graph(),
+                                               len(marks) + 1)
+        out = {"total": cuda_trace.by_type(counts), "stages": None}
+        if marks and found == len(marks):
+            names = ["outside"] + self.captured.open_after()
+            out["stages"] = list(zip(names,
+                                     cuda_trace.rows_by_type(counts)))
+        return out
 
 
 def capture(key: tuple, fn: Callable[..., torch.Tensor],
@@ -145,9 +184,10 @@ def capture(key: tuple, fn: Callable[..., torch.Tensor],
     """The CUDA graph of ``fn(**inputs)`` (CUDA tensors, or None): static
     copies of the inputs, one eager warm-up call on them on a side stream,
     then the capture of the same call on that stream into a graph with a
-    pool of its own, then its instantiation."""
+    pool of its own, then its instantiation.  With tracing on the
+    captured call begins and ends with a mark (a ``graph`` span)."""
     dev = next(t for t in inputs.values() if t is not None).device
-    with torch.cuda.device(dev):
+    with trace.span("capture"), torch.cuda.device(dev):
         static = {name: None if t is None else t.clone()
                   for name, t in inputs.items()}
         stream = torch.cuda.Stream(dev)
@@ -166,7 +206,8 @@ def capture(key: tuple, fn: Callable[..., torch.Tensor],
             # thread_local: a sync in this thread breaks the capture;
             # another thread (the stream CLI's drain) may read back
             with torch.cuda.graph(graph, stream=stream,
-                                  capture_error_mode="thread_local"):
+                                  capture_error_mode="thread_local"), \
+                    trace.graph(dev) as marks:
                 output = fn(**static)
         except Exception as e:
             raise RuntimeError(f"CUDA graph capture of {key} failed: "
@@ -184,7 +225,7 @@ def capture(key: tuple, fn: Callable[..., torch.Tensor],
         peak = torch.cuda.max_memory_allocated(dev)
         torch.cuda.current_stream(dev).wait_stream(stream)
     return FlowGraph(key, graph, static, output, launches, t1 - t0, t2 - t1,
-                     t3 - t2, peak, peak - base)
+                     t3 - t2, peak, peak - base, captured=marks.captured)
 
 
 class GraphCache:
@@ -205,6 +246,10 @@ class GraphCache:
             inputs: Mapping[str, Optional[torch.Tensor]]) -> torch.Tensor:
         """``fn(**inputs)`` by replay of the graph of ``key``, captured
         first if the cache lacks it."""
+        with trace.span("entry"):
+            return self._run(key, fn, inputs)
+
+    def _run(self, key, fn, inputs) -> torch.Tensor:
         entry = self.entries.get(key)
         if entry is None:
             entry = self.make(key, fn, inputs)

@@ -61,6 +61,7 @@ import torch
 
 from ..config import DEFAULT_CONFIG, UNKNOWN_FLOW, EPPMConfig
 from ..graphs import GRAPHS, tensor_meta
+from ..utils import trace
 from ..ops._util import _clamped
 from ..ops.cost import plane_offsets
 from ..ops.cuda_smooth import flow_smoothing_auto
@@ -319,10 +320,12 @@ def sharded_graph_key(imgs1: torch.Tensor, imgs2: torch.Tensor,
     """What a graph of the sharded body is specialised to: what the JAX
     package's jit keys on (the mesh's shape and devices, the batch and
     the padded frames' shape and dtype, ``cfg``, whether ``init_flows``
-    is given) and whether ``keys`` were given."""
+    is given), whether ``keys`` were given and whether tracing is on (a
+    traced graph holds marks)."""
     return ("compute_flow_sharded", mesh.devices.shape,
             tuple(mesh.devices.ravel()), tensor_meta(imgs1),
-            tensor_meta(imgs2), cfg, tensor_meta(init_flows), keys_given)
+            tensor_meta(imgs2), cfg, tensor_meta(init_flows), keys_given,
+            trace.enabled())
 
 
 _EAGER_MESHES = set()   # meshes of several cards, logged once each

@@ -56,6 +56,7 @@ from .ops.refine import (blf_refine_flow, flow_to_nnf, lr_check, nnf_to_flow,
                           outlier_removal)
 from .ops.resize import bilinear_resize, gaussian_filter, gaussian_pyramid
 from .ops.subpixel import subpixel_refine
+from .utils import trace
 
 __all__ = ["prepare_pyramids", "compute_flow", "compute_flow_jit",
            "EPPMFlow"]
@@ -109,6 +110,7 @@ def coarse_flow(levels1, packs1, levels2, packs2, cfg: EPPMConfig,
     chain -> the coarse flow (H_top, W_top, 2)."""
     top = len(packs1) - 1
     chunk = cfg.cost_tap_chunk
+    trace.mark("match")
     if cfg.match_engine == "dense":
         ci = None
         if init_flow is not None:
@@ -128,10 +130,13 @@ def coarse_flow(levels1, packs1, levels2, packs2, cfg: EPPMConfig,
         tx2, ty2, c2 = patchmatch(packs2[top], packs1[top], samplers[1],
                                   cfg.patchmatch, cfg.cost, chunk)
     otx, oty = tx1, ty1  # pre-LR matches: arbitration candidates
+    trace.mark("lr_check")
     tx1, ty1, c1, tx2, ty2, c2 = lr_check(
         tx1, ty1, c1, tx2, ty2, c2, cfg.lr_thresh
     )
+    trace.mark("outliers")
     tx1, ty1, c1 = outlier_removal(tx1, ty1, c1, cfg.refine)
+    trace.mark("occlusion")
     tx1, ty1 = coarse_occlusion_reconstruct(
         tx1, ty1, levels1[top], cfg.refine,
         packs=(packs1[top], packs2[top]), cost_cfg=cfg.cost,
@@ -171,7 +176,14 @@ def compute_flow(
     both searches, the forward first) or ``samplers`` (a (forward,
     backward) pair of samplers, ``ops/patchmatch.py``) may be given, one
     of the three at most.  The dense engine draws nothing.  Every cost
-    sums its taps in partial sums of ``cfg.cost_tap_chunk``."""
+    sums its taps in partial sums of ``cfg.cost_tap_chunk``.
+
+    With tracing on (``utils/trace.py``) each stage begins with a mark of
+    its name, and the last ends with the scope: ``prepare``, ``match``,
+    ``lr_check``, ``outliers``, ``occlusion``, then at each finer level l
+    ``L<l>.upsample``, ``L<l>.pass<n>`` (or ``L<l>.gather_refine``),
+    ``L<l>.smooth`` and, with ``fine_level_wmf``, ``L<l>.wmf``; then
+    ``subpixel`` where configured and ``final_smooth``."""
     if img1.device != img2.device:
         raise ValueError(f"frames on {img1.device} and {img2.device}")
     if init_flow is not None and init_flow.device != img1.device:
@@ -181,7 +193,16 @@ def compute_flow(
         raise ValueError("pass one of key, generator and samplers")
     if generator is not None:
         samplers = (TorchSampler(generator),) * 2
+    with trace.stages(img1.device):
+        return _stages(img1, img2, cfg, fine_level_wmf, init_flow, samplers,
+                       key)
+
+
+def _stages(img1, img2, cfg, fine_level_wmf, init_flow, samplers, key
+            ) -> torch.Tensor:
+    """``compute_flow``'s stages, each marked (see there)."""
     chunk = cfg.cost_tap_chunk
+    trace.mark("prepare")
     levels1, packs1 = prepare_pyramids(img1, cfg)
     levels2, packs2 = prepare_pyramids(img2, cfg)
     top = len(packs1) - 1
@@ -191,11 +212,13 @@ def compute_flow(
     ratio_up = 1.0 / cfg.pyramid.ratio
     for lvl in range(top - 1, -1, -1):
         oh, ow = packs1[lvl].shape[0], packs1[lvl].shape[1]
+        trace.mark(f"L{lvl}.upsample")
         flow = bilinear_resize(flow, oh, ow, ratio_up) * ratio_up
         if cfg.refine_impl == "dense":
             # the parabola fit only on the last refine pass of level 0
             n = cfg.dense_refine_passes
             fit = cfg.dense_subpixel_fit and lvl == 0
+            trace.mark(f"L{lvl}.pass1")
             flow = dense_refine_flow(
                 flow, packs1[lvl], packs2[lvl], cfg.cost,
                 cfg.dense_search_radius, cfg.dense_cand_shape,
@@ -205,6 +228,7 @@ def compute_flow(
                 tap_chunk=chunk,
             )
             for i in range(n - 1):
+                trace.mark(f"L{lvl}.pass{i + 2}")
                 flow = dense_refine_flow(
                     median3_flow(flow), packs1[lvl], packs2[lvl],
                     cfg.pass2_cost, cfg.dense_search_radius,
@@ -215,10 +239,13 @@ def compute_flow(
                     tap_chunk=chunk,
                 )
         else:
+            trace.mark(f"L{lvl}.gather_refine")
             flow = blf_refine_flow(flow, packs1[lvl], packs2[lvl], cfg.cost,
                                    chunk)
+        trace.mark(f"L{lvl}.smooth")
         flow = flow_smoothing_auto(flow, levels1[lvl], cfg.refine)
         if fine_level_wmf:
+            trace.mark(f"L{lvl}.wmf")
             ftx, fty = flow_to_nnf(flow)
             ftx, fty = weighted_median_filter_auto(
                 ftx, fty, levels1[lvl], cfg.refine, num_iter=1,
@@ -226,7 +253,9 @@ def compute_flow(
             )
             flow = nnf_to_flow(ftx, fty)
     if cfg.subpixel_refine:
+        trace.mark("subpixel")
         flow = subpixel_refine(flow, levels1[0], levels2[0], cfg.subpixel)
+    trace.mark("final_smooth")
     return flow_smoothing_auto(flow, levels1[0], cfg.refine)
 
 
@@ -249,8 +278,9 @@ def compute_flow_jit(
     copied into it like a given ``key``.  The port-only ``generator`` and
     ``samplers`` stay on ``compute_flow``."""
     if img1.device.type != "cuda":
-        return compute_flow(img1, img2, cfg, fine_level_wmf, init_flow,
-                            key=key)
+        with trace.span("entry"):
+            return compute_flow(img1, img2, cfg, fine_level_wmf, init_flow,
+                                key=key)
     for name, t in (("img2", img2), ("init_flow", init_flow), ("key", key)):
         if t is not None and t.device != img1.device:
             raise ValueError(f"{name} on {t.device}, frames on {img1.device}")

@@ -1,5 +1,5 @@
-"""Timers and a profiler trace (counterpart of ``eppm_tpu/utils/
-timing.py``, after the reference's timer classes, SURVEY.md §5):
+"""Timers (counterpart of ``eppm_tpu/utils/timing.py``, after the
+reference's timer classes, SURVEY.md §5):
 
 * ``Timer``: the wall clock (bao_timer_cpu);
 * ``DeviceTimer``: on a CUDA device the time between two CUDA events on
@@ -7,21 +7,19 @@ timing.py``, after the reference's timer classes, SURVEY.md §5):
   (bao_timer_gpu); on the CPU, where the caller asks for it, the wall
   clock;
 * ``time_stage``: the least of n runs of a callable, each ending in a
-  synchronize of the device;
-* ``profile_trace``: ``torch.profiler`` around a block, its Chrome trace
-  written to a directory.
+  synchronize of the device.
+
+Spans of the program's own stages are the tracer's (``trace.py``).
 """
 
 from __future__ import annotations
 
-import contextlib
-import os
 import time
 from typing import Callable, Optional, Union
 
 import torch
 
-__all__ = ["Timer", "DeviceTimer", "time_stage", "profile_trace"]
+__all__ = ["Timer", "DeviceTimer", "time_stage"]
 
 
 def _device(device) -> torch.device:
@@ -106,19 +104,3 @@ def time_stage(fn: Callable, *args, n: int = 5, label: str = "",
     if verbose and label:
         print(f"[{label}] {best * 1000:.2f} ms")
     return best
-
-
-@contextlib.contextmanager
-def profile_trace(log_dir: str):
-    """``torch.profiler`` (the CPU, and the card when there is one) around
-    a block; yields the profiler (``key_averages()`` for sums by kernel)
-    and writes its Chrome trace to ``log_dir``/trace.json."""
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=acts) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -4,7 +4,6 @@ line's ``--gt`` scores, presets and ``--eval-dir``, the flow guard
 (``utils/guard.py``) and the timers (``utils/timing.py``)."""
 
 import json
-import os
 
 import numpy as np
 import pytest
@@ -19,7 +18,7 @@ from eppm_tpu.utils import guard as jguard
 from eppm_tpu_torch import cli, io, metrics
 from eppm_tpu_torch.config import DEFAULT_CONFIG as TD
 from eppm_tpu_torch.config import UNKNOWN_FLOW
-from eppm_tpu_torch.utils import guard, timing
+from eppm_tpu_torch.utils import guard, timing, trace
 from test_torch_pipeline import shifted_pair
 
 # The suite runs several test processes per host: one torch thread each
@@ -190,7 +189,7 @@ def test_flow_sanity_matches_jax(rng):
                          max_warp_ratio=0.6)
 
 
-def test_timing_utils(tmp_path, capsys):
+def test_timing_utils(capsys):
     assert timing.Timer().start().stop() >= 0
     with pytest.raises(RuntimeError):
         timing.Timer().stop()
@@ -200,7 +199,13 @@ def test_timing_utils(tmp_path, capsys):
     assert "[mm]" in capsys.readouterr().out
     assert timing.time_stage(lambda a: a @ a, x, n=3, verbose=False,
                              device="cpu") > 0
-    with timing.profile_trace(str(tmp_path / "trace")) as prof:
-        x @ x
-    assert any("mm" in e.key for e in prof.key_averages())
-    assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
+    # under an active profiler a span of the tracer is a range of its name
+    trace.enable()
+    try:
+        with torch.profiler.profile() as prof:
+            with trace.span("tracer.mm"):
+                x @ x
+    finally:
+        trace.disable()
+        trace.collect()
+    assert any(e.key == "tracer.mm" for e in prof.key_averages())
