@@ -23,7 +23,12 @@ final line is not printed):
    targets in its polish, Jacobi and full-image modes, with the share of
    pixels it lists, and in its full-image mode at the fine levels of
    1080p (540x960, 1080x1920: ``fine_level_wmf``); the global argmax identical indices (kernel D at N1
-   = N2 = 1200, 8160 and 129,600); with each one's time beside the plain
+   = N2 = 1200, 8160 and 129,600); kernel E (PatchMatch's gathered cost
+   and fold, ``csrc/patchmatch.cu``) identical to its plain composition in
+   its propagation mode (K = 4) and fold mode (the random search's K = 6)
+   at the coarse levels of 640x480 and 1280x960 (120x160, 240x320), and
+   in its cost-only mode at 120x160 (its time device time: the wrapper's
+   host work outlasts the launch); with each one's time beside the plain
    version's (CUDA events, after a warm-up; kernel A's two passes also
    apart; kernel C's wrapper call is host-bound, so its time is device
    time, the call less the same call at ``num_iter=0``), its bound (the larger of its operations, counted from its
@@ -73,7 +78,9 @@ final line is not printed):
      at 640x480 and 1080p, the interior EPE beside the integer default's;
    - the PatchMatch engine (``match_engine="patchmatch"``) through
      ``EPPMFlow`` on its default key: (3, -2) and (37, 21) at
-     640x480, (5, 3) at 1080p, each pair's flow held by ``utils.guard.
+     640x480, (5, 3) at 1080p, kernel E launched 102 times a pair (an
+     init and 10 x 5 rounds, both directions; 0 times on the default
+     path), each pair's flow held by ``utils.guard.
      check_flow`` (finite, warp error below 0.6x the zero-flow one), its
      interior EPE, its time by ``utils.timing.DeviceTimer``, a second run
      identical to the first, and its device events under
@@ -280,6 +287,11 @@ SMOOTH_ONE_PASS_OPS = SMOOTH_PAIR_OPS + SMOOTH_TAP_OPS  # 43
 # earlier yardstick, every support at every pixel, is logged beside it.
 WMF_SUPPORT_OPS = 38
 WMF_PAIR_OPS = 5
+# Kernel E (csrc/patchmatch.cu), per (candidate, pixel, tap, table): two
+# exps 54, three maxabs3 15, the range weight's squares, sum, scale, spatial
+# scale and flush 6, ad's square and scale 2, 1 - exp 1, the term's sum and
+# product 2, the two partial sums 2.
+PM_TAP_OPS = 82
 
 
 def bound(ops: float, peak: float, nbytes: float):
@@ -766,6 +778,14 @@ def phase_kernels(dev) -> dict:
             cuda_cost.cost_tables(cfg.cost, False), 20)
         record_terms_error(terms_row[0])
 
+    # kernel E at the coarse levels of 1280x960 and 640x480, the latter
+    # last: the row keeps the times of its propagation round (K = 4), the
+    # PatchMatch cell's most frequent launch
+    for h, w, mode in [(240, 320, "fold"), (240, 320, "propagate"),
+                       (120, 160, "cost"), (120, 160, "fold"),
+                       (120, 160, "propagate")]:
+        kernel_e(rows, dev, h, w, mode)
+
     # kernel B: the paired kernel at the default radius 10, the one-pass
     # kernel at radius 6 (refine.blf_sigma_spatial=3.0); the counts say
     # which one each call launched
@@ -865,6 +885,75 @@ def phase_kernels(dev) -> dict:
     return rows
 
 
+def kernel_e(rows: dict, dev, h: int, w: int, mode: str) -> None:
+    """Kernel E at one coarse level (a synthetic pair shifted by (3, -2))
+    and mode against its plain composition on the card: identical (the
+    costs, or the folded targets and costs), its time, the plain
+    version's and the bound.  The incumbent is the shift give or take 2
+    px; the fold's 6 candidates are drawn within 30 px of it, as the
+    random search's first guesses, the cost-only mode takes 4."""
+    from eppm_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from eppm_tpu_torch.ops import cuda_patchmatch as E
+    from eppm_tpu_torch.ops import patchmatch as pm
+    from eppm_tpu_torch.ops._util import grid
+
+    (_, p1), (_, p2) = _packs(h, w, 3, -2, SEED + 5, dev)
+    gen = torch.Generator(dev).manual_seed(SEED + 5)
+    ys, xs = grid(h, w, dev)
+
+    def near(x, r, n, size):
+        noise = torch.randint(-r, r + 1, (n, h, w), generator=gen,
+                              device=dev, dtype=torch.int32)
+        return (x + noise).clamp(0, size).to(torch.int32).contiguous()
+
+    tx, ty = near(xs + 3, 2, 1, w)[0], near(ys - 2, 2, 1, h)[0]
+    tables = [cfg.cost.tap_offsets]
+    cost = E.patch_cost_tables(p1, p2, tx, ty, cfg.cost, tables)
+    k = 4 if mode != "fold" else len(cfg.patchmatch.search_mags())
+    txs, tys = near(tx, 30, k, w), near(ty, 30, k, h)
+    call, plain = {
+        "cost": (lambda: (E.patch_cost_tables_cuda(
+                     p1, p2, txs, tys, cfg.cost, tables),),
+                 lambda: (E.patch_cost_tables(p1, p2, txs, tys, cfg.cost,
+                                              tables),)),
+        "fold": (lambda: E.select_candidates_cuda(
+                     p1, p2, tx, ty, cost, txs, tys, cfg.cost, tables),
+                 lambda: pm.select_candidates(p1, p2, tx, ty, cost, txs,
+                                              tys, cfg.cost, tables)),
+        "propagate": (lambda: E.propagate_candidates_cuda(
+                          p1, p2, tx, ty, cost, 4, cfg.cost, tables),
+                      lambda: pm.propagate_candidates(
+                          p1, p2, tx, ty, cost, 4, cfg.cost, tables)),
+    }[mode]
+    got, ref = call(), plain()
+    same = all(torch.equal(a, b) for a, b in zip(got, ref))
+    err = float((got[-1] - ref[-1]).abs().max())
+    moved = (float((got[0] != tx).float().mean()) if mode != "cost"
+             else 0.0)
+    # the wrapper's host work (checks, tables, outputs) outlasts the
+    # launch at these sizes: the kernel's time is device time
+    ms = device_ms(call, 50)
+    call_ms = cuda_ms(call, 50)
+    pms = cuda_ms(plain, 5)
+    taps = len(cfg.cost.tap_offsets)
+    # packs read as float4, the candidates' targets and the incumbent in,
+    # the costs or the folded state out
+    nbytes = h * w * (2 * 16 + k * 8 + (24 if mode != "cost" else k * 4))
+    bms, by = bound(k * h * w * taps * PM_TAP_OPS, F32_FLOPS, nbytes)
+    log(f"patchmatch {mode} {h}x{w} K={k} taps={taps}: "
+        f"{'identical' if same else 'DIFFER'} (max |diff| {err:.3g}; "
+        f"{moved:.2%} of the targets replaced)  kernel {ms:.4f} ms (device; "
+        f"the call by events {call_ms:.4f} ms)  plain {pms:.3f} ms  bound "
+        f"{bms:.4f} ms ({by}, {bms / ms:.1%} of it reached)")
+    check(same, f"kernel E {mode} {h}x{w}: differs from its plain version")
+    row = rows.setdefault("patchmatch_costs", {"max_abs_err": 0.0})
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    row.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+               library_ms=None, call_ms=call_ms,
+               ms_basis="device time (a spin kernel holds the stream while "
+               "the host enqueues)")
+
+
 def interior(h: int, w: int, dx: int, dy: int, margin: int) -> np.ndarray:
     """Pixels whose target under the shift (dx, dy) lies in the frame,
     ``margin`` px away from every border."""
@@ -884,8 +973,8 @@ def interior_epe(flow: np.ndarray, dx: int, dy: int, margin: int) -> float:
 
 def counters() -> dict:
     """Each kernel's launch counter, by the name of its row."""
-    from eppm_tpu_torch.ops import cuda_cost, cuda_match, cuda_smooth
-    from eppm_tpu_torch.ops import cuda_wmf
+    from eppm_tpu_torch.ops import cuda_cost, cuda_match, cuda_patchmatch
+    from eppm_tpu_torch.ops import cuda_smooth, cuda_wmf
 
     return {
         "cost_terms": cuda_cost.TERMS,
@@ -896,6 +985,7 @@ def counters() -> dict:
         "weighted_median_filter": cuda_wmf.KERNEL,
         "residual_costs_planes": cuda_cost.PLANES,
         "global_argmax": cuda_match.KERNEL,
+        "patchmatch_costs": cuda_patchmatch.KERNEL,
     }
 
 
@@ -966,6 +1056,7 @@ PROFILED = {
                                 ("flow_smoothing_paired",)),
     "kernel C (wmf_list_kernel + wmf_median_kernel)": (
         ("wmf_list_kernel", "wmf_median_kernel"), ("weighted_median_filter",)),
+    "patchmatch_kernel": (("patchmatch_kernel",), ("patchmatch_costs",)),
 }
 
 
@@ -1242,6 +1333,9 @@ def pm_case(model, dev, h, w, dx, dy, seed) -> None:
     check(same, "two runs of the default key differ")
     check(per_pair.get("flow_smoothing_paired", 0) == (3 if h == 480 else 4),
           f"smoothing launches per pair {per_pair}")
+    pcfg = model.cfg.patchmatch
+    check(per_pair.get("patchmatch_costs", 0) == 2 * (1 + pcfg.num_iters * (
+        len(pcfg.prop_steps) + 1)), f"kernel E launches per pair {per_pair}")
     profile_pair(model, dev, h, w, dx, dy, seed)
     if h == 1080:
         profile_pm_stage(model.cfg, dev, h, w, dx, dy, seed)
@@ -1643,8 +1737,10 @@ def phase_end_to_end(dev) -> dict:
                 f"integer default's {base[case]:.4f}")
 
     log("-- patchmatch: match_engine='patchmatch', the default key")
+    check(launches["default"]["patchmatch_costs"] == 0,
+          "kernel E launched on the default path")
     pm_kernels = ["cost_terms", "residual_costs", "flow_smoothing_paired",
-                  "weighted_median_filter"]
+                  "weighted_median_filter", "patchmatch_costs"]
     model = EPPMFlow(dataclasses.replace(cfg, **PM_CFG))
     for path, run in (
             ("patchmatch", lambda: [pm_case(model, dev, *case)
@@ -1822,12 +1918,12 @@ def pm_agreement(dev) -> None:
 
 # the kernels each engine launches on every pair of the eval set: the
 # dense engine kernel A in both forms, B and C; PatchMatch A (no multiwarp
-# form), B and C
+# form), B, C and E
 DOSSIER_KERNELS = {
     "dense": ["cost_terms", "residual_costs", "residual_costs_multiwarp",
               "flow_smoothing_paired", "weighted_median_filter"],
     "patchmatch": ["cost_terms", "residual_costs", "flow_smoothing_paired",
-                   "weighted_median_filter"],
+                   "weighted_median_filter", "patchmatch_costs"],
 }
 
 
@@ -1897,14 +1993,16 @@ def graph_label(key) -> str:
     """A graph key of ``graphs.graph_key`` or of ``parallel.sharded.
     sharded_graph_key`` in a few words."""
     if key[0] == "compute_flow_sharded":
-        _, mesh, _, (shape, dtype), _, gcfg, init, given = key
+        _, mesh, _, (shape, dtype), _, gcfg, init, given, traced = key
         return (f"sharded {mesh} mesh, {shape[0]} x {shape[2]}x{shape[1]} "
                 f"{str(dtype).replace('torch.', '')} {gcfg.match_engine}"
-                f"{' init_flows' if init else ''}{' keys' if given else ''}")
-    _, (shape, dtype), _, gcfg, fine, init, given = key
+                f"{' init_flows' if init else ''}{' keys' if given else ''}"
+                f"{' traced' if traced else ''}")
+    _, (shape, dtype), _, gcfg, fine, init, given, traced = key
     return (f"{shape[1]}x{shape[0]} {str(dtype).replace('torch.', '')} "
             f"{gcfg.match_engine}{' fine_level_wmf' if fine else ''}"
-            f"{' init_flow' if init else ''}{' key' if given else ''}")
+            f"{' init_flow' if init else ''}{' key' if given else ''}"
+            f"{' traced' if traced else ''}")
 
 
 def log_capture(entry) -> None:
@@ -2257,6 +2355,10 @@ SOURCES = {  # name: (source, the TPU kernel it replaces, the path it runs on)
                               "(plane tables, wrapper :389)", "planes"),
     "global_argmax": ("eppm_tpu_torch/csrc/match.cu",
                       "eppm_tpu/ops/pallas_match.py:40", "match_coarse"),
+    "patchmatch_costs": ("eppm_tpu_torch/csrc/patchmatch.cu",
+                         "none: the JAX package computes this cost in XLA "
+                         "(eppm_tpu/ops/cost.py::_patch_cost_offsets)",
+                         "patchmatch"),
 }
 
 

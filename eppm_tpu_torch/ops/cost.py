@@ -21,8 +21,13 @@ affine hypotheses and keeps the least cost; at integral query points each
 hypothesis is a static integer tap table (``plane_offsets``).
 
 The gathered costs (the exact stage, the plane-fitting re-search of
-``refine_impl="gather"``) read frame-2 taps at per-pixel targets; they are
-not Pallas kernels in the JAX package and stay plain torch here.
+``refine_impl="gather"``, PatchMatch's) read frame-2 taps at per-pixel
+targets; they are not Pallas kernels in the JAX package.  The exact
+stage's stays plain torch here; ``patch_cost_offsets`` over any tap
+tables has a CUDA kernel, kernel E (``ops/cuda_patchmatch.py``), which
+``patch_cost``, ``patch_cost_candidates`` and ``patch_cost_planefitting``
+take for CUDA tensors (``patch_cost_offsets`` and ``patch_cost_tables``
+stay the plain versions on every device).
 """
 
 from __future__ import annotations
@@ -43,7 +48,8 @@ __all__ = ["pack_frame", "make_patch_stack", "patch_cost_stack", "tap_weight",
            "PLANE_COEFS", "plane_offsets", "patch_cost_offsets", "patch_cost",
            "patch_cost_candidates", "patch_cost_scaled",
            "scaled_tap_offsets", "patch_cost_planefitting",
-           "patch_cost_ad_l2", "quantize_cost", "TAP_CHUNK"]
+           "patch_cost_tables", "patch_cost_ad_l2", "quantize_cost",
+           "TAP_CHUNK"]
 
 # Taps per partial sum of the cost: the default of ``EPPMConfig.
 # cost_tap_chunk``, which every cost takes as its ``tap_chunk``.  The JAX
@@ -454,23 +460,42 @@ def patch_cost_offsets(
     return cost[0] if single else cost
 
 
+def patch_cost_tables(pack1, pack2, tx, ty, cfg: CostConfig,
+                      tables: Sequence[Sequence[Tuple[int, int]]],
+                      pack1_halo: int = 0, tap_chunk: int = TAP_CHUNK
+                      ) -> torch.Tensor:
+    """The least ``patch_cost_offsets`` over the frame-2 tap tables
+    ``tables``, taken in table order: the plain version of kernel E's
+    cost (``ops/cuda_patchmatch.py``), which ``patch_cost_tables_auto``
+    takes for CPU tensors."""
+    cost = None
+    for offsets2 in tables:
+        c = patch_cost_offsets(pack1, pack2, tx, ty, cfg, offsets2,
+                               pack1_halo, tap_chunk)
+        cost = c if cost is None else torch.minimum(cost, c)
+    return cost
+
+
 def patch_cost(pack1, pack2, tx, ty, cfg: CostConfig = CostConfig(),
                pack1_halo: int = 0, tap_chunk: int = TAP_CHUNK
                ) -> torch.Tensor:
     """Fronto-parallel gathered AD + census cost (bao_pmflow_kernel.cu:
     255-301; ``eppm_tpu/ops/cost.py::patch_cost``): (H, W) targets ->
-    (H, W) float32, unquantized."""
-    return patch_cost_offsets(pack1, pack2, tx, ty, cfg, cfg.tap_offsets,
-                              pack1_halo, tap_chunk)
+    (H, W) float32, unquantized; kernel E on the card."""
+    from .cuda_patchmatch import patch_cost_tables_auto
+    return patch_cost_tables_auto(pack1, pack2, tx, ty, cfg,
+                                  [cfg.tap_offsets], pack1_halo, tap_chunk)
 
 
 def patch_cost_candidates(pack1, pack2, txs, tys,
                           cfg: CostConfig = CostConfig(),
                           tap_chunk: int = TAP_CHUNK) -> torch.Tensor:
     """The fronto cost of K candidate fields (K, H, W) -> (K, H, W), all K
-    in one pass (``eppm_tpu/ops/cost.py::patch_cost_candidates``)."""
-    return patch_cost_offsets(pack1, pack2, txs, tys, cfg, cfg.tap_offsets,
-                              tap_chunk=tap_chunk)
+    in one pass (``eppm_tpu/ops/cost.py::patch_cost_candidates``); kernel
+    E on the card."""
+    from .cuda_patchmatch import patch_cost_tables_auto
+    return patch_cost_tables_auto(pack1, pack2, txs, tys, cfg,
+                                  [cfg.tap_offsets], 0, tap_chunk)
 
 
 def scaled_tap_offsets(taps, scale: torch.Tensor):
@@ -529,13 +554,10 @@ def patch_cost_planefitting(
     (bao_pmflow_kernel.cu:334-513; ``eppm_tpu/ops/cost.py::
     patch_cost_planefitting``); targets (H, W) or (K, H, W), ``pack1``
     with ``pack1_halo`` rows and columns of context as in
-    ``patch_cost_offsets``."""
-    cost = None
-    for offsets2 in plane_offsets(cfg):
-        c = patch_cost_offsets(pack1, pack2, tx, ty, cfg, offsets2,
-                               pack1_halo, tap_chunk)
-        cost = c if cost is None else torch.minimum(cost, c)
-    return cost
+    ``patch_cost_offsets``; kernel E on the card."""
+    from .cuda_patchmatch import patch_cost_tables_auto
+    return patch_cost_tables_auto(pack1, pack2, tx, ty, cfg,
+                                  plane_offsets(cfg), pack1_halo, tap_chunk)
 
 
 def patch_cost_ad_l2(img1: torch.Tensor, img2: torch.Tensor, tx: torch.Tensor,

@@ -10,8 +10,12 @@ step of ``prop_steps`` (the reference ships such a variant, :800-857).
 A candidate replaces the incumbent only on a strictly lower raw float32
 cost; ties keep the incumbent.  The NNF is absolute int32 targets.
 
-The costs are the gathered costs of ``ops/cost.py``, plain torch: the
-JAX package reaches no Pallas kernel on this loop.
+The costs are the gathered costs of ``ops/cost.py``: the JAX package
+reaches no Pallas kernel on this loop.  On the card each cost and fold is
+one launch of kernel E (``ops/cuda_patchmatch.py``): the init's cost,
+each propagation round (its neighbours' targets computed in the kernel)
+and each random search's guesses; ``select_candidates`` and
+``propagate_candidates`` are its plain versions.
 
 Randomness goes through a sampler.  ``ThreefrySampler`` makes the JAX
 package's draws from a key (``ops/prng.py``: JAX's threefry key
@@ -41,14 +45,16 @@ import torch
 from ..config import CostConfig, PatchMatchConfig
 from . import prng
 from ._util import inv32, pad_edge, shift2d
-from .cost import (TAP_CHUNK, patch_cost, patch_cost_candidates,
-                   patch_cost_planefitting, patch_cost_scaled)
+from .cost import (TAP_CHUNK, patch_cost, patch_cost_scaled,
+                   patch_cost_tables, plane_offsets)
 
 __all__ = [
     "ThreefrySampler",
     "TorchSampler",
     "random_init",
     "random_init_scaled",
+    "select_candidates",
+    "propagate_candidates",
     "propagate_round",
     "line_propagate",
     "random_search",
@@ -201,17 +207,37 @@ def _neighbour_targets(tx, ty, step: int):
     return txs, tys, dirs
 
 
-def _propagate(tx, ty, cost, step: int, cost_fn):
+def select_candidates(pack1, pack2, tx, ty, cost, txs, tys,
+                      cost_cfg: CostConfig, tables, tap_chunk: int = TAP_CHUNK):
+    """The gathered cost of the candidate fields (txs, tys) (K, H, W)
+    (the least over the frame-2 tap ``tables``), folded into the state
+    (tx, ty, cost) by ``_select_best``: the plain version of kernel E's
+    fold (``ops/cuda_patchmatch.py``)."""
+    costs = patch_cost_tables(pack1, pack2, txs, tys, cost_cfg, tables,
+                              tap_chunk=tap_chunk)
+    return _select_best((tx, ty, cost), (txs, tys, costs))
+
+
+def propagate_candidates(pack1, pack2, tx, ty, cost, step: int,
+                         cost_cfg: CostConfig, tables,
+                         tap_chunk: int = TAP_CHUNK):
+    """One Jacobi jump-flood round at distance ``step`` over the gathered
+    cost of the tap ``tables``: the plain version of kernel E's
+    propagation mode."""
     txs, tys, _ = _neighbour_targets(tx, ty, step)
-    return _select_best((tx, ty, cost), (txs, tys, cost_fn(txs, tys)))
+    return select_candidates(pack1, pack2, tx, ty, cost, txs, tys, cost_cfg,
+                             tables, tap_chunk)
 
 
 def propagate_round(pack1, pack2, tx, ty, cost, step: int,
                     cost_cfg: CostConfig, tap_chunk: int = TAP_CHUNK):
     """One Jacobi jump-flood round at distance ``step``: each pixel tries
-    the offsets of its 4 axial neighbours at that distance."""
-    return _propagate(tx, ty, cost, step, lambda a, b: patch_cost_candidates(
-        pack1, pack2, a, b, cost_cfg, tap_chunk))
+    the offsets of its 4 axial neighbours at that distance (kernel E on
+    the card)."""
+    from .cuda_patchmatch import propagate_candidates_auto
+    return propagate_candidates_auto(pack1, pack2, tx, ty, cost, step,
+                                     cost_cfg, [cost_cfg.tap_offsets],
+                                     tap_chunk)
 
 
 def _guess_bounds(tx, ty, mags, w: int, h: int):
@@ -224,12 +250,13 @@ def _guess_bounds(tx, ty, mags, w: int, h: int):
     return out
 
 
-def _search(sampler, it: int, tx, ty, cost, mags, cost_fn):
+def _guesses(sampler, it: int, tx, ty, mags):
+    """Iteration ``it``'s random guesses around the incumbent -> (K, H, W)
+    x2."""
     h, w = tx.shape
     g = sampler.search(it, (h, w), _guess_bounds(tx, ty, mags, w, h),
                        tx.device)
-    txs, tys = torch.stack(g[0::2]), torch.stack(g[1::2])
-    return _select_best((tx, ty, cost), (txs, tys, cost_fn(txs, tys)))
+    return torch.stack(g[0::2]), torch.stack(g[1::2])
 
 
 def random_search(sampler, it: int, pack1, pack2, tx, ty, cost,
@@ -240,24 +267,35 @@ def random_search(sampler, it: int, pack1, pack2, tx, ty, cost,
     incumbent (the reference draws all guesses before evaluating any),
     uniform in [max(t - mag, 0), min(t + mag + 1, dim + 1)) per axis,
     mag halving from ``search_range`` (``search_mags``)."""
-    return _search(as_sampler(sampler), it, tx, ty, cost,
-                   pm_cfg.search_mags(), lambda a, b: patch_cost_candidates(
-                       pack1, pack2, a, b, cost_cfg, tap_chunk))
+    from .cuda_patchmatch import select_candidates_auto
+    txs, tys = _guesses(as_sampler(sampler), it, tx, ty,
+                        pm_cfg.search_mags())
+    return select_candidates_auto(pack1, pack2, tx, ty, cost, txs, tys,
+                                  cost_cfg, [cost_cfg.tap_offsets], tap_chunk)
 
 
-def _patchmatch(pack1, pack2, sampler, pm_cfg: PatchMatchConfig, cost_fn):
+def _patchmatch(pack1, pack2, sampler, pm_cfg: PatchMatchConfig,
+                cost_cfg: CostConfig, tables, tap_chunk: int):
     """Random init, then ``num_iters`` x (a propagation round a step,
-    then a random search), costs by ``cost_fn(tx, ty)`` of (H, W) or
-    (K, H, W) targets."""
+    then a random search), over the gathered cost of the frame-2 tap
+    ``tables`` (the least over them): kernel E on the card, one launch
+    for the init and one a round or search."""
+    from . import cuda_patchmatch as kernel_e
     h, w = pack1.shape[0], pack1.shape[1]
     sampler = as_sampler(sampler)
     tx, ty = random_init(sampler, h, w, pack1.device)
-    cost = cost_fn(tx, ty)
+    cost = kernel_e.patch_cost_tables_auto(pack1, pack2, tx, ty, cost_cfg,
+                                           tables, tap_chunk=tap_chunk)
     mags = pm_cfg.search_mags()
     for i in range(pm_cfg.num_iters):
         for step in pm_cfg.prop_steps:
-            tx, ty, cost = _propagate(tx, ty, cost, step, cost_fn)
-        tx, ty, cost = _search(sampler, i, tx, ty, cost, mags, cost_fn)
+            tx, ty, cost = kernel_e.propagate_candidates_auto(
+                pack1, pack2, tx, ty, cost, step, cost_cfg, tables,
+                tap_chunk)
+        txs, tys = _guesses(sampler, i, tx, ty, mags)
+        tx, ty, cost = kernel_e.select_candidates_auto(
+            pack1, pack2, tx, ty, cost, txs, tys, cost_cfg, tables,
+            tap_chunk)
     return tx, ty, cost
 
 
@@ -270,9 +308,8 @@ def patchmatch(pack1, pack2, sampler, pm_cfg: PatchMatchConfig =
     ty) absolute int32 targets and their float32 cost; the costs sum
     their taps in chunks of ``tap_chunk`` (``EPPMConfig.
     cost_tap_chunk``)."""
-    return _patchmatch(pack1, pack2, sampler, pm_cfg, lambda a, b:
-                       patch_cost(pack1, pack2, a, b, cost_cfg,
-                                  tap_chunk=tap_chunk))
+    return _patchmatch(pack1, pack2, sampler, pm_cfg, cost_cfg,
+                       [cost_cfg.tap_offsets], tap_chunk)
 
 
 def line_propagate(pack1, pack2, tx, ty, cost, cost_cfg: CostConfig,
@@ -291,14 +328,16 @@ def line_propagate(pack1, pack2, tx, ty, cost, cost_cfg: CostConfig,
         step = -1 if reverse else 1
         n = w if axis == 1 else h
         order = range(n - 1, -1, -1) if reverse else range(n)
-        # lines as rows of (n, length) fields: columns for axis 1
+        # lines as rows of (n, length) fields: columns for axis 1; rows
+        # and tiles contiguous, as kernel E reads them on the card
         lines = [f.t() if axis == 1 else f for f in (tx, ty, cost)]
-        out = [f.clone() for f in lines]
+        out = [f.clone(memory_format=torch.contiguous_format)
+               for f in lines]
         prev_tx, prev_ty = out[0][order[0]], out[1][order[0]]
         for i in order[1:]:
             if axis == 1:
                 cand_tx, cand_ty = (prev_tx + step).clamp(0, w - 1), prev_ty
-                tile = pad1[:, i : i + 1 + 2 * R]
+                tile = pad1[:, i : i + 1 + 2 * R].contiguous()
                 c = patch_cost(tile, pack2, cand_tx[:, None],
                                cand_ty[:, None], cost_cfg, pack1_halo=R,
                                tap_chunk=tap_chunk)[:, 0]
@@ -363,6 +402,5 @@ def patchmatch_planefitting(pack1, pack2, sampler, pm_cfg: PatchMatchConfig
     """PatchMatch over the plane-fitting cost, the least over 4 affine
     hypotheses (baoCudaPatchMatch_PlaneFitting, bao_pmflow_kernel.cu:
     1899-1963) -> (tx, ty, cost)."""
-    return _patchmatch(pack1, pack2, sampler, pm_cfg, lambda a, b:
-                       patch_cost_planefitting(pack1, pack2, a, b, cost_cfg,
-                                               tap_chunk))
+    return _patchmatch(pack1, pack2, sampler, pm_cfg, cost_cfg,
+                       plane_offsets(cost_cfg), tap_chunk)

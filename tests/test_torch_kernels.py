@@ -1,6 +1,6 @@
 """The port's CUDA kernels (A: residual cost, with its plane mode; B: flow
-smoothing; C: weighted median; D: global descriptor argmax) and their
-dispatch.
+smoothing; C: weighted median; D: global descriptor argmax; E: PatchMatch's
+gathered cost and fold) and their dispatch.
 
 Tests marked ``gpu`` build the kernels with nvcc and run them against
 their plain PyTorch versions on the card (run them on a GPU host, which
@@ -20,10 +20,11 @@ from eppm_tpu_torch import pipeline
 from eppm_tpu_torch.config import DEFAULT_CONFIG as CFG
 from eppm_tpu_torch.config import INVALID_LOCATION, UNKNOWN_FLOW, RefineConfig
 from eppm_tpu_torch.ops import _build, cuda_cost, cuda_match, cuda_smooth
-from eppm_tpu_torch.ops import cuda_wmf, match, occlusion
+from eppm_tpu_torch.ops import cuda_patchmatch, cuda_wmf, match, occlusion
+from eppm_tpu_torch.ops import patchmatch as pm
 from eppm_tpu_torch.ops._util import grid
 from eppm_tpu_torch.ops.census import census_transform
-from eppm_tpu_torch.ops.cost import pack_frame
+from eppm_tpu_torch.ops.cost import pack_frame, plane_offsets
 from eppm_tpu_torch.ops.dense import center_out_offsets
 from eppm_tpu_torch.ops.refine import fill_holes
 from eppm_tpu_torch.testing import dark_rows
@@ -81,7 +82,8 @@ DEFAULT_PATH = (cuda_cost.TERMS, cuda_cost.SINGLE, cuda_cost.MULTIWARP,
 
 
 def _counts(kernels=DEFAULT_PATH + (cuda_cost.PLANES, cuda_match.KERNEL,
-                                    cuda_smooth.KERNEL)):
+                                    cuda_smooth.KERNEL,
+                                    cuda_patchmatch.KERNEL)):
     return tuple(k.launches for k in kernels)
 
 
@@ -95,6 +97,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     d1, d2 = _descriptors(5, 7)
     r = max(max(abs(v) for v in t) for t in CFG.cost.tap_offsets)
     terms = torch.zeros((1, 8 + 2 * r, 12 + 2 * r))
+    cost = torch.zeros((8, 12))
     calls = [
         lambda: cuda_cost.residual_costs_cuda(p1, p2, [(0, 0)], CFG.cost),
         lambda: cuda_cost.residual_costs_planes_cuda(p1, p2, [(0, 0)],
@@ -110,6 +113,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         lambda: cuda_smooth.flow_smoothing_cuda(flow, img, CFG.refine),
         lambda: cuda_wmf.weighted_median_filter_cuda(tx, ty, wimg,
                                                      CFG.refine),
+        lambda: cuda_patchmatch.patch_cost_tables_cuda(
+            p1, p2, tx, ty, CFG.cost, [CFG.cost.tap_offsets]),
+        lambda: cuda_patchmatch.select_candidates_cuda(
+            p1, p2, tx, ty, cost, tx[None], ty[None], CFG.cost,
+            [CFG.cost.tap_offsets]),
+        lambda: cuda_patchmatch.propagate_candidates_cuda(
+            p1, p2, tx, ty, cost, 1, CFG.cost, [CFG.cost.tap_offsets]),
     ]
     before = _counts()
     for call in calls:
@@ -130,6 +140,22 @@ def test_dispatchers_take_plain_versions_on_cpu_only():
     cuda_cost.residual_costs_multiwarp_auto(p1, p2[None], CFG.cost)
     cuda_smooth.flow_smoothing_auto(flow, img, CFG.refine)
     cuda_wmf.weighted_median_filter_auto(tx, ty, wimg, CFG.refine)
+    tables = [CFG.cost.tap_offsets]
+    cost = cuda_patchmatch.patch_cost_tables_auto(p1, p2, tx, ty, CFG.cost,
+                                                  tables)
+    assert torch.equal(cost, cuda_patchmatch.patch_cost_tables(
+        p1, p2, tx, ty, CFG.cost, tables))
+    txs, tys = torch.stack([tx, tx + 1]), torch.stack([ty - 1, ty])
+    for got, want in (
+            (cuda_patchmatch.select_candidates_auto(
+                p1, p2, tx, ty, cost, txs, tys, CFG.cost, tables),
+             pm.select_candidates(p1, p2, tx, ty, cost, txs, tys, CFG.cost,
+                                  tables)),
+            (cuda_patchmatch.propagate_candidates_auto(
+                p1, p2, tx, ty, cost, 2, CFG.cost, tables),
+             pm.propagate_candidates(p1, p2, tx, ty, cost, 2, CFG.cost,
+                                     tables))):
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert _counts() == before
     meta = torch.empty((8, 12, 4), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -139,6 +165,9 @@ def test_dispatchers_take_plain_versions_on_cpu_only():
                                         CFG.refine)
     with pytest.raises(ValueError, match="unsupported device"):
         cuda_match.global_argmax_auto(meta[0].bfloat16(), meta[0].bfloat16())
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_patchmatch.patch_cost_tables_auto(meta, meta, tx, ty, CFG.cost,
+                                               tables)
 
 
 def test_argument_checks_reject_what_the_kernels_do_not_take():
@@ -177,6 +206,46 @@ def test_argument_checks_reject_what_the_kernels_do_not_take():
     tx, ty, wimg = _wmf_inputs(8, 12)
     with pytest.raises(ValueError, match="int32"):
         cuda_wmf.check_wmf_args(tx.long(), ty, wimg, CFG.refine)
+    # kernel E
+    check = cuda_patchmatch.check_patchmatch_args
+    tables = [CFG.cost.tap_offsets]
+    cost = torch.zeros((8, 12))
+    txs, tys = tx.repeat(4, 1, 1), ty.repeat(4, 1, 1)
+    check(p1, p2, txs, tys, CFG.cost, tables)
+    check(p1, p2, tx, ty, CFG.cost, tables, state=(tx, ty, cost))
+    check(p1, p2, tx[2:-2, 2:-2].contiguous(), ty[2:-2, 2:-2].contiguous(),
+          CFG.cost, tables, pack1_halo=2)
+    check(p1, p2, txs, tys, CFG.cost, plane_offsets(CFG.cost))
+    bad = [  # (match, arguments, keywords)
+        ("int32", (p1, p2, txs.long(), tys), {}),
+        ("float32", (p1.double(), p2, txs, tys), {}),
+        ("float32", (p1, p2, tx, ty), dict(state=(tx, ty, cost.double()))),
+        ("shape", (p1, p2, txs, tys[:2]), {}),
+        ("shape", (p1, p2, tx, ty), dict(state=(tx, ty, cost[:4]))),
+        ("shape", (p1, p2, tx[0], ty[0]), {}),
+        ("contiguous", (p1, p2, txs.transpose(1, 2).contiguous()
+                        .transpose(1, 2), tys), {}),
+        ("contiguous", (p1.transpose(0, 1).contiguous().transpose(0, 1), p2,
+                        txs, tys), {}),
+        ("boundary", (p1, torch.zeros(8 * 12 * 4 + 1)[1:].view(8, 12, 4),
+                      txs, tys), {}),
+        ("candidates", (p1, p2, tx.repeat(33, 1, 1), ty.repeat(33, 1, 1)),
+         {}),
+        ("halo", (p1, p2, tx, ty), dict(pack1_halo=1)),
+        ("chunk", (p1, p2, txs, tys), dict(tap_chunk=0)),
+    ]
+    for match_, args, kw in bad:
+        with pytest.raises(ValueError, match=match_):
+            check(*args, CFG.cost, tables, **kw)
+    wide = dataclasses.replace(CFG.cost, patch_stride=1)   # 361 taps
+    with pytest.raises(ValueError, match="taps"):
+        check(p1, p2, txs, tys, wide, [wide.tap_offsets])
+    far = dataclasses.replace(CFG.cost, patch_radius=33, patch_stride=11)
+    with pytest.raises(ValueError, match="within"):
+        check(p1, p2, txs, tys, far, [far.tap_offsets])
+    for many in (tables * 5, [tables[0][:-1]]):
+        with pytest.raises(ValueError, match="tables"):
+            check(p1, p2, txs, tys, CFG.cost, many)
 
 
 def test_main_path_hands_kernels_arguments_they_take(monkeypatch):
@@ -221,6 +290,58 @@ def test_main_path_hands_kernels_arguments_they_take(monkeypatch):
     assert tuple(flow.shape) == (48, 64, 2)
     assert set(seen) == {"residual_costs_auto", "residual_costs_multiwarp_auto",
                          "flow_smoothing_auto", "weighted_median_filter_auto"}
+
+
+def test_patchmatch_path_hands_kernel_e_arguments_it_takes(monkeypatch):
+    """The PatchMatch engine through ``compute_flow`` on the CPU with
+    kernel E's dispatchers wrapped in its argument check: every call
+    passes, 102 a pair (two directions of an init and 10 iterations of 4
+    propagation rounds and a random search); the dense matcher's
+    dispatchers are not called."""
+    seen = collections.Counter()
+    E = cuda_patchmatch
+
+    def wrap(name, check):
+        orig = getattr(E, name)
+
+        def checked(*args, **kwargs):
+            check(*args, **kwargs)
+            seen[name] += 1
+            return orig(*args, **kwargs)
+
+        monkeypatch.setattr(E, name, checked)
+
+    def costs(p1, p2, tx, ty, cfg, tables, pack1_halo=0, tap_chunk=25):
+        E.check_patchmatch_args(p1, p2, tx, ty, cfg, tables, pack1_halo,
+                                tap_chunk)
+
+    def select(p1, p2, tx, ty, cost, txs, tys, cfg, tables, tap_chunk=25):
+        assert txs.dim() == 3
+        E.check_patchmatch_args(p1, p2, txs, tys, cfg, tables, 0, tap_chunk,
+                                (tx, ty, cost))
+
+    def propagate(p1, p2, tx, ty, cost, step, cfg, tables, tap_chunk=25):
+        assert step >= 1
+        E.check_patchmatch_args(p1, p2, tx, ty, cfg, tables, 0, tap_chunk,
+                                (tx, ty, cost))
+
+    wrap("patch_cost_tables_auto", costs)
+    wrap("select_candidates_auto", select)
+    wrap("propagate_candidates_auto", propagate)
+    for mod in (cuda_cost, match):
+        monkeypatch.setattr(mod, "residual_costs_multiwarp_auto",
+                            lambda *a, **k: pytest.fail("dense matcher"))
+    rng = np.random.default_rng(3)
+    img1 = torch.from_numpy((rng.random((48, 64, 3)) * 255).astype(np.uint8))
+    img2 = torch.roll(img1, (1, -2), (0, 1))
+    cfg = dataclasses.replace(CFG, match_engine="patchmatch")
+    assert tuple(pipeline.compute_flow(img1, img2, cfg).shape) == (48, 64, 2)
+    iters = cfg.patchmatch.num_iters
+    assert seen == {"patch_cost_tables_auto": 2,
+                    "propagate_candidates_auto":
+                        2 * iters * len(cfg.patchmatch.prop_steps),
+                    "select_candidates_auto": 2 * iters}
+    assert sum(seen.values()) == 102
 
 
 def test_plane_and_match_paths_hand_kernels_arguments_they_take(
@@ -394,6 +515,112 @@ def test_kernel_a_terms_pass_matches_plain(cuda, planes):
     assert got.shape == (100 if planes else 9, 40 + 18, 56 + 18)
     assert torch.equal(got, cuda_cost.cost_terms(p1, p2, plan.maps, 9,
                                                  CFG.cost))
+
+
+def _pm_targets(k, h, w, seed, device):
+    """K candidate fields and an incumbent for kernel E: targets around
+    the frame, x = w and y = h among them, some far outside it (in row 2
+    the incumbent at x = -1000 and the candidates at -2000, -3000, ...:
+    every read clamps alike, so their costs tie), a duplicate candidate
+    and one equal to the incumbent."""
+    rng = np.random.default_rng(seed)
+    tx = rng.integers(-3, w + 4, (k + 1, h, w)).astype(np.int32)
+    ty = rng.integers(-3, h + 4, (k + 1, h, w)).astype(np.int32)
+    tx[:, 0, :3], ty[:, 1, :3] = w, h
+    # the incumbent far left, and candidates farther left that tie with it
+    tx[:, 2] = -1000 * np.arange(1, k + 2)[:, None]
+    ty[:, 2] = ty[0, 2]
+    if k >= 2:
+        tx[2, 3], ty[2, 3] = tx[1, 3], ty[1, 3]   # a duplicate
+    tx[k, 4], ty[k, 4] = tx[0, 4], ty[0, 4]       # the incumbent itself
+    tx[k, 5] = 10**6
+    ty[k, 6] = -(10**6)
+    t = [torch.from_numpy(a).to(device) for a in (tx, ty)]
+    return t[0][0], t[1][0], t[0][1:].contiguous(), t[1][1:].contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,chunk,hw", [
+    (1, 25, (37, 70)), (4, 25, (37, 70)), (6, 25, (37, 70)),
+    (4, 7, (37, 70)), (6, 49, (37, 70)), (4, 25, (8, 10)),
+    (6, 7, (8, 10))])
+@pytest.mark.parametrize("planes", [False, True])
+def test_kernel_e_matches_plain(cuda, k, chunk, hw, planes):
+    """Kernel E's three modes on the card, each ``torch.equal`` to its
+    plain composition there: the cost of K candidate fields
+    (``patch_cost_tables``), their fold into the incumbent
+    (``select_candidates``: strict '<', so the ties and the duplicate keep
+    the earlier target) and a propagation round (``propagate_candidates``)
+    at steps 1 and 8; fronto or plane tables, chunks of 25, 7 or 49 taps,
+    and a frame smaller than the patch's reach."""
+    h, w = hw
+    (_, p1), (_, p2) = _packs(h, w, seed=k, device=cuda)
+    tables = plane_offsets(CFG.cost) if planes else [CFG.cost.tap_offsets]
+    tx, ty, txs, tys = _pm_targets(k, h, w, k + 10, cuda)
+    cost = cuda_patchmatch.patch_cost_tables(p1, p2, tx, ty, CFG.cost,
+                                             tables, 0, chunk)
+    n = cuda_patchmatch.KERNEL.launches
+    got = cuda_patchmatch.patch_cost_tables_auto(p1, p2, txs, tys, CFG.cost,
+                                                 tables, 0, chunk)
+    assert torch.equal(got, cuda_patchmatch.patch_cost_tables(
+        p1, p2, txs, tys, CFG.cost, tables, 0, chunk))
+    got = cuda_patchmatch.patch_cost_tables_auto(p1, p2, tx, ty, CFG.cost,
+                                                 tables, 0, chunk)
+    assert torch.equal(got, cost)
+    got = cuda_patchmatch.select_candidates_auto(
+        p1, p2, tx, ty, cost, txs, tys, CFG.cost, tables, chunk)
+    want = pm.select_candidates(p1, p2, tx, ty, cost, txs, tys, CFG.cost,
+                                tables, chunk)
+    assert all(torch.equal(g, v) for g, v in zip(got, want))
+    assert bool((got[0][2] == -1000).all())   # the ties kept
+    for step in (1, 8):
+        got = cuda_patchmatch.propagate_candidates_auto(
+            p1, p2, want[0], want[1], want[2], step, CFG.cost, tables, chunk)
+        ref = pm.propagate_candidates(p1, p2, want[0], want[1], want[2],
+                                      step, CFG.cost, tables, chunk)
+        assert all(torch.equal(g, v) for g, v in zip(got, ref))
+    assert cuda_patchmatch.KERNEL.launches == n + 5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("halo", [2, 9, 12])
+def test_kernel_e_honours_the_frame_1_halo(cuda, halo):
+    """A tile of frame 1 with ``halo`` rows and columns of context (less
+    than, equal to and more than the taps' reach of 9), as the gathered
+    refine and line propagation pass it: identical to the plain cost."""
+    (_, p1), (_, p2) = _packs(40, 56, seed=3, device=cuda)
+    h, w = 40 - 2 * halo, 56 - 2 * halo
+    tx, ty, txs, tys = _pm_targets(4, h, w, 7, cuda)
+    for tables in ([CFG.cost.tap_offsets], plane_offsets(CFG.cost)):
+        for x, y in ((tx, ty), (txs, tys)):
+            got = cuda_patchmatch.patch_cost_tables_cuda(
+                p1, p2, x, y, CFG.cost, tables, halo)
+            want = cuda_patchmatch.patch_cost_tables(p1, p2, x, y, CFG.cost,
+                                                     tables, halo)
+            assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("planes", [False, True])
+def test_kernel_e_patchmatch_on_the_card_matches_the_cpu(cuda, planes):
+    """A whole ``patchmatch`` (``patchmatch_planefitting``) at 120x160 on
+    the card, one launch of kernel E for the init and one a round or
+    search, identical to the same call on the CPU under the same key."""
+    from eppm_tpu_torch.ops.prng import prng_key
+
+    (_, c1), (_, c2) = _packs(120, 160, seed=9)
+    run = pm.patchmatch_planefitting if planes else pm.patchmatch
+    pcfg = CFG.patchmatch
+    if planes:
+        pcfg = dataclasses.replace(pcfg, num_iters=3)
+    n = cuda_patchmatch.KERNEL.launches
+    got = run(c1.to(cuda), c2.to(cuda),
+              pm.ThreefrySampler(prng_key(1234, cuda)), pcfg, CFG.cost)
+    assert cuda_patchmatch.KERNEL.launches - n == 1 + pcfg.num_iters * (
+        len(pcfg.prop_steps) + 1)
+    want = run(c1, c2, pm.ThreefrySampler(prng_key(1234)), pcfg, CFG.cost)
+    for g, v in zip(got, want):
+        assert torch.equal(g.cpu(), v)
 
 
 @pytest.mark.gpu
