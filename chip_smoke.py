@@ -166,7 +166,21 @@ final line is not printed):
    of a traced replay of the pair tiling its ``graph`` span (within 1%),
    that span within 5% of CUDA events around the same replay, the traced
    flow identical to the untraced one and the untraced graph holding no
-   mark node, the warm stream's EPE under 1.
+   mark node, the warm stream's EPE under 1;
+9. the upstream deployment (``UPSTREAM_CONFIG``, linchaobao/EPPM's
+   binary's settings): kernel E identical to its plain version in its
+   cost-only mode over the 4 plane tables of 100 taps at K = 1 (the
+   gathered refine's launches) at 480x640 and 240x320, and in its
+   propagation and fold modes at 100 taps at 120x160, each with its
+   device ms and its share of the bound; kernel C's 20 occlusion-only
+   iterations at 120x160 identical to the plain version, 20 launches;
+   one 640x480 pair eager (under the sync debug mode) and replayed
+   through ``compute_flow_jit``, identical, with kernel E launched 120
+   times a pair (102 in the search, 9 a fine level in the refine),
+   kernel C 20 and kernel B 3, eager and in a replay; and a traced
+   replay, identical, whose ``occlusion`` stage holds ``occlusion.wmf``
+   and ``occlusion.fill``.  Alone: ``python3 -c "import torch, chip_smoke
+   as c; c.phase_build(); c.phase_upstream(torch.device('cuda', 0))"``.
 
 Each phase logs its seconds.  The line before the last is one JSON object
 with a row per kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -885,17 +899,25 @@ def phase_kernels(dev) -> dict:
     return rows
 
 
-def kernel_e(rows: dict, dev, h: int, w: int, mode: str) -> None:
-    """Kernel E at one coarse level (a synthetic pair shifted by (3, -2))
-    and mode against its plain composition on the card: identical (the
+def kernel_e(rows: dict, dev, h: int, w: int, mode: str, cfg=None,
+             planes: bool = False, k: int = 4) -> None:
+    """Kernel E at one level (a synthetic pair shifted by (3, -2)) and
+    mode against its plain composition on the card: identical (the
     costs, or the folded targets and costs), its time, the plain
     version's and the bound.  The incumbent is the shift give or take 2
     px; the fold's 6 candidates are drawn within 30 px of it, as the
-    random search's first guesses, the cost-only mode takes 4."""
-    from eppm_tpu_torch.config import DEFAULT_CONFIG as cfg
+    random search's first guesses, the cost-only mode takes ``k``.
+    ``cfg`` (``DEFAULT_CONFIG`` by default) gives the taps and the tap
+    chunk; ``planes`` takes its 4 plane tables for the one frame-2
+    table (the plane-fitting refine's cost)."""
+    from eppm_tpu_torch.config import DEFAULT_CONFIG
     from eppm_tpu_torch.ops import cuda_patchmatch as E
     from eppm_tpu_torch.ops import patchmatch as pm
     from eppm_tpu_torch.ops._util import grid
+    from eppm_tpu_torch.ops.cost import plane_offsets
+
+    cfg = cfg or DEFAULT_CONFIG
+    chunk = cfg.cost_tap_chunk
 
     (_, p1), (_, p2) = _packs(h, w, 3, -2, SEED + 5, dev)
     gen = torch.Generator(dev).manual_seed(SEED + 5)
@@ -907,23 +929,29 @@ def kernel_e(rows: dict, dev, h: int, w: int, mode: str) -> None:
         return (x + noise).clamp(0, size).to(torch.int32).contiguous()
 
     tx, ty = near(xs + 3, 2, 1, w)[0], near(ys - 2, 2, 1, h)[0]
-    tables = [cfg.cost.tap_offsets]
-    cost = E.patch_cost_tables(p1, p2, tx, ty, cfg.cost, tables)
-    k = 4 if mode != "fold" else len(cfg.patchmatch.search_mags())
+    tables = (plane_offsets(cfg.cost) if planes
+              else [cfg.cost.tap_offsets])
+    cost = E.patch_cost_tables(p1, p2, tx, ty, cfg.cost, tables,
+                               tap_chunk=chunk)
+    if mode == "fold":
+        k = len(cfg.patchmatch.search_mags())
+    elif mode == "propagate":
+        k = 4
     txs, tys = near(tx, 30, k, w), near(ty, 30, k, h)
     call, plain = {
         "cost": (lambda: (E.patch_cost_tables_cuda(
-                     p1, p2, txs, tys, cfg.cost, tables),),
+                     p1, p2, txs, tys, cfg.cost, tables, tap_chunk=chunk),),
                  lambda: (E.patch_cost_tables(p1, p2, txs, tys, cfg.cost,
-                                              tables),)),
+                                              tables, tap_chunk=chunk),)),
         "fold": (lambda: E.select_candidates_cuda(
-                     p1, p2, tx, ty, cost, txs, tys, cfg.cost, tables),
+                     p1, p2, tx, ty, cost, txs, tys, cfg.cost, tables,
+                     chunk),
                  lambda: pm.select_candidates(p1, p2, tx, ty, cost, txs,
-                                              tys, cfg.cost, tables)),
+                                              tys, cfg.cost, tables, chunk)),
         "propagate": (lambda: E.propagate_candidates_cuda(
-                          p1, p2, tx, ty, cost, 4, cfg.cost, tables),
+                          p1, p2, tx, ty, cost, 4, cfg.cost, tables, chunk),
                       lambda: pm.propagate_candidates(
-                          p1, p2, tx, ty, cost, 4, cfg.cost, tables)),
+                          p1, p2, tx, ty, cost, 4, cfg.cost, tables, chunk)),
     }[mode]
     got, ref = call(), plain()
     same = all(torch.equal(a, b) for a, b in zip(got, ref))
@@ -939,13 +967,16 @@ def kernel_e(rows: dict, dev, h: int, w: int, mode: str) -> None:
     # packs read as float4, the candidates' targets and the incumbent in,
     # the costs or the folded state out
     nbytes = h * w * (2 * 16 + k * 8 + (24 if mode != "cost" else k * 4))
-    bms, by = bound(k * h * w * taps * PM_TAP_OPS, F32_FLOPS, nbytes)
-    log(f"patchmatch {mode} {h}x{w} K={k} taps={taps}: "
+    bms, by = bound(k * h * w * taps * len(tables) * PM_TAP_OPS, F32_FLOPS,
+                    nbytes)
+    log(f"patchmatch {mode} {h}x{w} K={k} taps={taps} "
+        f"tables={len(tables)} chunk={chunk}: "
         f"{'identical' if same else 'DIFFER'} (max |diff| {err:.3g}; "
         f"{moved:.2%} of the targets replaced)  kernel {ms:.4f} ms (device; "
         f"the call by events {call_ms:.4f} ms)  plain {pms:.3f} ms  bound "
         f"{bms:.4f} ms ({by}, {bms / ms:.1%} of it reached)")
-    check(same, f"kernel E {mode} {h}x{w}: differs from its plain version")
+    check(same, f"kernel E {mode} {h}x{w} taps={taps} tables={len(tables)}: "
+          "differs from its plain version")
     row = rows.setdefault("patchmatch_costs", {"max_abs_err": 0.0})
     row["max_abs_err"] = max(row["max_abs_err"], err)
     row.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
@@ -2271,6 +2302,122 @@ def sharded_graphs(dev, large, small, warm, jit_1080p_ms) -> None:
         imgs1, imgs2, m, **kw), r_ms)
 
 
+def phase_upstream(dev) -> None:
+    """The upstream deployment (``UPSTREAM_CONFIG``, phase 9 of the
+    docstring): kernel E at its shapes, kernel C's 20 iterations, and one
+    pair eager, replayed and traced."""
+    from eppm_tpu_torch.config import UPSTREAM_CONFIG as ucfg
+    from eppm_tpu_torch.graphs import GRAPHS, graph_key
+    from eppm_tpu_torch.ops import cuda_patchmatch, cuda_wmf
+    from eppm_tpu_torch.ops.refine import weighted_median_filter
+    from eppm_tpu_torch.pipeline import compute_flow, compute_flow_jit
+    from eppm_tpu_torch.utils import trace
+
+    log("== phase 9: the upstream deployment (UPSTREAM_CONFIG)")
+    rows: dict = {}
+    # the gathered refine's launches at the fine levels of 640x480: K = 1
+    # candidate over the 4 plane tables of 100 taps
+    for h, w in ((480, 640), (240, 320)):
+        kernel_e(rows, dev, h, w, "cost", cfg=ucfg, planes=True, k=1)
+    # the search's rounds at the coarse level, 100 taps, one table
+    for mode in ("propagate", "fold"):
+        kernel_e(rows, dev, 120, 160, mode, cfg=ucfg)
+
+    rcfg = ucfg.refine
+    tx, ty, img, _ = wmf_inputs(120, 160, dev)
+    n = rcfg.wmf_coarse_iters
+    before = cuda_wmf.KERNEL.launches
+    got = cuda_wmf.weighted_median_filter_cuda(tx, ty, img, rcfg, n,
+                                               only_occlusion=True)
+    torch.cuda.synchronize()
+    launched = cuda_wmf.KERNEL.launches - before
+    want = weighted_median_filter(tx, ty, img, rcfg, n, only_occlusion=True)
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    # a call enqueues 20 launches and their host work: few calls a timing
+    k_ms, call_ms, planes_ms = wmf_kernel_ms(
+        lambda it: cuda_wmf.weighted_median_filter_cuda(
+            tx, ty, img, rcfg, n if it is None else it, only_occlusion=True),
+        reps=3)
+    log(f"wmf 120x160 occlusion-only x{n}: "
+        f"{'identical' if same else 'DIFFER'}, {launched} launches; kernel "
+        f"{k_ms:.4f} ms device (the call {call_ms:.4f}, its planes "
+        f"{planes_ms:.4f})")
+    check(same, f"kernel C x{n} at 120x160: differs from its plain version")
+    check(launched == n, f"kernel C: {launched} launches for {n} iterations")
+
+    # one pair: eager under the sync debug mode, then the graph
+    img1, img2 = [torch.from_numpy(f).to(dev)
+                  for f in shifted_pair(480, 640, 3, -2, SEED + 90)]
+    GRAPHS.clear()
+    compute_flow(img1, img2, ucfg)   # the tables, outside the count
+    torch.cuda.synchronize()
+    cs = counters()
+    for c in cs.values():
+        c.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager = compute_flow(img1, img2, ucfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    per_pair = {name: c.launches for name, c in cs.items() if c.launches}
+    first = compute_flow_jit(img1, img2, cfg=ucfg)
+    torch.cuda.synchronize()
+    mid = {name: c.launches for name, c in cs.items()}
+    again = compute_flow_jit(img1, img2, cfg=ucfg)
+    torch.cuda.synchronize()
+    per_replay = {name: c.launches - mid[name] for name, c in cs.items()
+                  if c.launches > mid[name]}
+    same = bool(torch.equal(first, eager)) and bool(torch.equal(again, eager))
+    flow = eager.cpu().numpy()
+    epe = interior_epe(flow, 3, -2, 16)
+    log(f"upstream 640x480 shift (3,-2): eager pair ran no synchronising "
+        f"op; replays {'identical to' if same else 'DIFFER from'} it; "
+        f"interior EPE {epe:.4f}; launches eager {per_pair}, a replay "
+        f"{per_replay}")
+    check(same, "upstream: the replayed flow differs from the eager one")
+    check(bool(np.isfinite(flow).all()), "upstream: non-finite flow")
+    # 2 x (1 init + 10 x (4 propagation rounds + 1 search)) in the
+    # search, 2 fine levels x 9 candidates in the refine
+    for counts in (per_pair, per_replay):
+        check(counts.get("patchmatch_costs", 0) == 120,
+              f"upstream: kernel E {counts.get('patchmatch_costs', 0)} "
+              "launches a pair, expected 120")
+        check(counts.get("weighted_median_filter", 0) == n,
+              f"upstream: kernel C {counts.get('weighted_median_filter', 0)}"
+              f" launches a pair, expected {n}")
+        check(counts.get("flow_smoothing_paired", 0) == 3,
+              "upstream: kernel B not 3 launches a pair")
+    log_capture(GRAPHS.entries[graph_key(img1, img2, ucfg, False, None,
+                                         None)])
+
+    # the tracer: the legacy order's marks inside the occlusion stage
+    trace.enable()
+    try:
+        compute_flow_jit(img1, img2, cfg=ucfg)   # captures, replays
+        trace.collect()
+        traced = compute_flow_jit(img1, img2, cfg=ucfg)
+        tr = trace.collect()
+    finally:
+        trace.disable()
+    # a stage opens before the stages inside it (ids count up as marks
+    # open), and may share its start stamp with the first of them
+    stages = sorted((x for x in tr.spans if not x.host and x.name != "graph"),
+                    key=lambda x: (x.start_ns, x.id))
+    by = {x.name: x for x in stages}
+    names = [x.name for x in stages]
+    log("upstream traced replay: "
+        + ", ".join(f"{x.name} {x.ms:.3f}" for x in stages) + " ms")
+    check(bool(torch.equal(traced, eager)),
+          "upstream: the traced replay's flow differs from the eager one")
+    check(names[names.index("occlusion"):][:3]
+          == ["occlusion", "occlusion.wmf", "occlusion.fill"]
+          and by["occlusion.wmf"].parent == by["occlusion"].id
+          and by["occlusion.fill"].parent == by["occlusion"].id,
+          f"upstream: the occlusion marks are {names}")
+    GRAPHS.clear()
+
+
 def run_program(name: str, argv) -> list:
     """``eppm_tpu_torch.bench.<name>.main(argv)`` in this process, its
     standard output captured: each line logged and parsed as JSON; fails
@@ -2383,6 +2530,7 @@ def main() -> int:
     timed(phase_dossier, dev)
     timed(phase_graphs, dev)
     timed(phase_programs, dev)
+    timed(phase_upstream, dev)
     kernels = []
     for name, (source, replaces, path) in SOURCES.items():
         r = rows[name]

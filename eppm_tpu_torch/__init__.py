@@ -21,6 +21,7 @@ from .config import (
     PatchMatchConfig,
     PyramidConfig,
     RefineConfig,
+    UPSTREAM_CONFIG,
     config_fingerprint,
     config_from_dict,
 )

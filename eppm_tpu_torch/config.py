@@ -622,6 +622,44 @@ class EPPMConfig:
 
 DEFAULT_CONFIG = EPPMConfig()
 
+# The deployment of linchaobao/EPPM's own binary: one pair at a time at its
+# hardcoded 640x480 (main.cpp:38), with the settings of defs.h:31-91 and the
+# stage order of bao_flow_patchmatch_multiscale_cuda.cpp:217-315.  Every
+# field whose comment above names the binary's value takes that value:
+# the PatchMatch search, the stride-2 grid of 100 taps (no centre tap), the
+# gathered plane-fitting re-search at the fine levels, the fixed depth 3,
+# the strict LR check, no collapse guard, 20 occlusion-only WMF iterations
+# and then the constant single-pixel scan-line fill (the fill-first keys
+# below are the binary's values too, though only the fill-first order
+# reads them).  What the port cannot reproduce, and why:
+#   - propagation: jump-flood rounds (``patchmatch.prop_steps``) for the
+#     sequential 10-px segmented scan lines (bao_pmflow_kernel.cu:979-1181),
+#     a chain of dependent reads along each row that a data-parallel program
+#     does not run; the binary ships a jump-flood variant itself (:800-857);
+#   - draws: the JAX package's threefry stream from ``seed`` for cuRAND's
+#     (seed 1234, bao_pmflow_kernel.cu:48-71), so that the port and
+#     ``eppm_tpu`` draw alike; no cuRAND stream is reproduced;
+#   - the occlusion WMF: Jacobi iterations (every pixel reads the previous
+#     iteration) for the binary's in-place sweep, whose result depends on
+#     the order its threads run in;
+#   - arithmetic: the cost sums its taps in partial sums of
+#     ``cost_tap_chunk`` and rounds every product alone, with a Cephes
+#     exp, as the JAX package's program computes it (the binary's one
+#     running sum is compiled with fused multiply-adds and CUDA's exp).
+UPSTREAM_CONFIG = dataclasses.replace(
+    DEFAULT_CONFIG,
+    pyramid=dataclasses.replace(DEFAULT_CONFIG.pyramid, auto_depth_dim=0),
+    cost=dataclasses.replace(DEFAULT_CONFIG.cost, patch_stride=2),
+    refine=dataclasses.replace(
+        DEFAULT_CONFIG.refine, lr_diff_thresh=0, stat_collapse_guard=0.0,
+        wmf_coarse_iters=20, wmf_fill_first=False, fill_patch_radius=0,
+        fill_linear_baseline=0, fill_photometric_thresh=0.0,
+        fill_median_rounds=0,
+    ),
+    match_engine="patchmatch",
+    refine_impl="gather",
+)
+
 
 def config_fingerprint(cfg: EPPMConfig = DEFAULT_CONFIG) -> str:
     """Short stable hash of a full config tree.

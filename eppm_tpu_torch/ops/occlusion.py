@@ -20,6 +20,7 @@ from typing import Tuple
 import torch
 
 from ..config import FLT_MAX, INVALID_LOCATION, RefineConfig
+from ..utils import trace
 from ._util import grid
 from .cost import make_patch_stack, patch_cost_stack
 from .cuda_wmf import weighted_median_filter_auto
@@ -147,8 +148,9 @@ def coarse_occlusion_reconstruct(tx, ty, img, rcfg: RefineConfig,
     dilation (one iteration is that pass's fixed point), then median
     majority rounds over the holes.  Otherwise the legacy order:
     ``wmf_coarse_iters`` occlusion-only Jacobi iterations, then
-    ``fill_holes``.  Either way the optional full-image WMF passes
-    follow."""
+    ``fill_holes``, the two marked for the tracer as ``occlusion.wmf``
+    and ``occlusion.fill`` inside ``compute_flow``'s ``occlusion``
+    stage.  Either way the optional full-image WMF passes follow."""
     if rcfg.wmf_fill_first:
         hole = (tx < 0) | (ty < 0)
         tx, ty = wmf_polish_occlusions(
@@ -172,10 +174,12 @@ def coarse_occlusion_reconstruct(tx, ty, img, rcfg: RefineConfig,
             tx = torch.where(hole, ox.to(torch.int32) + xs, tx)
             ty = torch.where(hole, oy.to(torch.int32) + ys, ty)
     else:
+        trace.submark("occlusion.wmf")
         tx, ty = weighted_median_filter_auto(
             tx, ty, img, rcfg, num_iter=rcfg.wmf_coarse_iters,
             only_occlusion=True,
         )
+        trace.submark("occlusion.fill")
         tx, ty = fill_holes(tx, ty, img)
     if rcfg.wmf_coarse_full_iters > 0:
         tx, ty = weighted_median_filter_auto(

@@ -180,10 +180,12 @@ def compute_flow(
 
     With tracing on (``utils/trace.py``) each stage begins with a mark of
     its name, and the last ends with the scope: ``prepare``, ``match``,
-    ``lr_check``, ``outliers``, ``occlusion``, then at each finer level l
-    ``L<l>.upsample``, ``L<l>.pass<n>`` (or ``L<l>.gather_refine``),
-    ``L<l>.smooth`` and, with ``fine_level_wmf``, ``L<l>.wmf``; then
-    ``subpixel`` where configured and ``final_smooth``."""
+    ``lr_check``, ``outliers``, ``occlusion`` (in the legacy order, with
+    ``occlusion.wmf`` and ``occlusion.fill`` inside it), then at each
+    finer level l ``L<l>.upsample``, ``L<l>.pass<n>`` (or
+    ``L<l>.gather_refine``), ``L<l>.smooth`` and, with
+    ``fine_level_wmf``, ``L<l>.wmf``; then ``subpixel`` where configured
+    and ``final_smooth``."""
     if img1.device != img2.device:
         raise ValueError(f"frames on {img1.device} and {img2.device}")
     if init_flow is not None and init_flow.device != img1.device:

@@ -13,8 +13,11 @@ Switched off, ``span`` and ``mark`` return at once.
   name, so the profiler's trace shows it beside the device's operations.
 * ``mark(name)``: inside a ``stages`` or ``graph`` scope, the start of the
   stage ``name``; a stage ends at the next mark of its depth or at its
-  scope's end.  ``pipeline.compute_flow`` opens ``stages`` and marks each
-  stage; ``graphs.capture`` opens ``graph`` around the captured call, so a
+  scope's end.  ``submark(name)`` starts a stage one depth below the
+  open one (``ops/occlusion.py``'s legacy order marks its two steps so),
+  which ends at the next submark or with its parent.
+  ``pipeline.compute_flow`` opens ``stages`` and marks each stage;
+  ``graphs.capture`` opens ``graph`` around the captured call, so a
   replay holds a ``graph`` span with the stages inside it.  On the CPU a
   mark reads the host clock.  On the card it is one kernel
   (``ops/cuda_trace.py``) that writes the card's clock into a ring in
@@ -48,8 +51,8 @@ import torch
 from ..ops import cuda_trace
 
 __all__ = ["Span", "Trace", "Captured", "Tracer", "TRACER", "enable",
-           "disable", "enabled", "span", "new_pair", "mark", "stages",
-           "graph", "replayed", "collect", "idle_gaps", "chrome",
+           "disable", "enabled", "span", "new_pair", "mark", "submark",
+           "stages", "graph", "replayed", "collect", "idle_gaps", "chrome",
            "write_chrome"]
 
 
@@ -323,6 +326,16 @@ class Tracer:
         if seq is not None:
             self._record(seq, name, seq.depth)
 
+    def submark(self, name: str) -> None:
+        """The start of stage ``name`` inside the stage ``mark`` opened
+        last: one depth below it, so it ends at the next submark or with
+        its parent, at the next mark."""
+        if not self.on:
+            return
+        seq = getattr(self._local, "seq", None)
+        if seq is not None:
+            self._record(seq, name, seq.depth + 1)
+
     def stages(self, device):
         """The scope of ``compute_flow``'s stage marks on ``device``."""
         if not self.on:
@@ -551,6 +564,7 @@ disable = TRACER.disable
 span = TRACER.span
 new_pair = TRACER.new_pair
 mark = TRACER.mark
+submark = TRACER.submark
 stages = TRACER.stages
 graph = TRACER.graph
 replayed = TRACER.replayed
