@@ -28,7 +28,12 @@ final line is not printed):
    its propagation mode (K = 4) and fold mode (the random search's K = 6)
    at the coarse levels of 640x480 and 1280x960 (120x160, 240x320), and
    in its cost-only mode at 120x160 (its time device time: the wrapper's
-   host work outlasts the launch); with each one's time beside the plain
+   host work outlasts the launch); kernel F (the dense matcher's exact
+   stage, ``csrc/exact.cu``) identical to ``match.exact_best_of`` at the
+   1080p coarse level (135x240) in each of its calls: the incumbent's
+   score (K = 1), the 8-ring, a step-2 propagation round (K = 4) and the
+   median round at equality (K = 1), its bound the float64 conversions
+   of its exps as well as its operations; with each one's time beside the plain
    version's (CUDA events, after a warm-up; kernel A's two passes also
    apart; kernel C's wrapper call is host-bound, so its time is device
    time, the call less the same call at ``num_iter=0``), its bound (the larger of its operations, counted from its
@@ -80,14 +85,15 @@ final line is not printed):
      ``EPPMFlow`` on its default key: (3, -2) and (37, 21) at
      640x480, (5, 3) at 1080p, kernel E launched 102 times a pair (an
      init and 10 x 5 rounds, both directions; 0 times on the default
-     path), each pair's flow held by ``utils.guard.
+     path) and kernel F no time (8 times a pair on every dense path),
+     each pair's flow held by ``utils.guard.
      check_flow`` (finite, warp error below 0.6x the zero-flow one), its
      interior EPE, its time by ``utils.timing.DeviceTimer``, a second run
      identical to the first, and its device events under
      ``torch.profiler``, the pair's (at 1080p also the PatchMatch
      stage's alone, drawing from the key and from a ``torch.Generator``:
      the device events the key's draws add); the dense matcher's kernels
-     (the multiwarp form of kernel A, kernel D) launched no time;
+     (the multiwarp form of kernel A, kernel D, kernel F) launched no time;
    - the command line on that engine: ``--gt`` with a KITTI 16-bit PNG
      ground truth, and ``--eval-dir`` over two 640x480 sequences (the
      scores of each);
@@ -177,9 +183,9 @@ final line is not printed):
    one 640x480 pair eager (under the sync debug mode) and replayed
    through ``compute_flow_jit``, identical, with kernel E launched 120
    times a pair (102 in the search, 9 a fine level in the refine),
-   kernel C 20 and kernel B 3, eager and in a replay; and a traced
-   replay, identical, whose ``occlusion`` stage holds ``occlusion.wmf``
-   and ``occlusion.fill``.  Alone: ``python3 -c "import torch, chip_smoke
+   kernel C 20, kernel B 3 and kernel F none, eager and in a replay; and
+   a traced replay, identical, whose ``occlusion`` stage holds
+   ``occlusion.wmf`` and ``occlusion.fill``.  Alone: ``python3 -c "import torch, chip_smoke
    as c; c.phase_build(); c.phase_upstream(torch.device('cuda', 0))"``.
 
 Each phase logs its seconds.  The line before the last is one JSON object
@@ -306,6 +312,19 @@ WMF_PAIR_OPS = 5
 # scale and flush 6, ad's square and scale 2, 1 - exp 1, the term's sum and
 # product 2, the two partial sums 2.
 PM_TAP_OPS = 82
+# Kernel F (csrc/exact.cu), per (candidate, pixel, tap): two exps 54, three
+# maxabs3 15, the range weight's square, fused sum 2, scale, spatial scale
+# and flush 6, ad's square and scale 2, 1 - exp 1, the term's sum 1, the
+# running cost's fma 2 and the weight's sum 1.  What bounds it is not these
+# but its float32 <-> float64 conversions: 19 an exp_cephes (csrc/
+# common.cuh: 9 fma32, each converting its float32 operands and rounding
+# back, constants converted at compile time and repeated operands once),
+# 3 in the range weight's fma32 and 4 in the running cost's.  An SM
+# converts 16 a clock (the CUDA C++ Programming Guide's throughput table,
+# compute capability 9.0): 132 SMs at the H100 SXM's 1.98 GHz boost clock.
+EXACT_TAP_OPS = 82
+EXACT_TAP_CONVERSIONS = 2 * 19 + 3 + 4
+CONVERSIONS_PER_S = 132 * 16 * 1.98e9
 
 
 def bound(ops: float, peak: float, nbytes: float):
@@ -800,6 +819,11 @@ def phase_kernels(dev) -> dict:
                        (120, 160, "propagate")]:
         kernel_e(rows, dev, h, w, mode)
 
+    # kernel F at the coarse level of 1080p and 4K, each call of the exact
+    # stage; the row keeps the 8-ring's times, its largest call
+    for call in ("score", "median", "propagate", "ring"):
+        kernel_f(rows, dev, 135, 240, call)
+
     # kernel B: the paired kernel at the default radius 10, the one-pass
     # kernel at radius 6 (refine.blf_sigma_spatial=3.0); the counts say
     # which one each call launched
@@ -985,6 +1009,87 @@ def kernel_e(rows: dict, dev, h: int, w: int, mode: str, cfg=None,
                "the host enqueues)")
 
 
+def kernel_f(rows: dict, dev, h: int, w: int, call: str) -> None:
+    """Kernel F at one level (a synthetic pair shifted by (3, -2)) in one
+    call of the exact stage against its plain version on the card
+    (``match.exact_best_of``): identical, its device time and the call's
+    events time, the plain version's time and two bounds, the float32
+    operations over the float32 peak and the float64 conversions over
+    the card's conversion rate.  The incumbent is the shift give or take
+    1 px; ``call`` is the incumbent's score (K = 1, unmasked), the
+    8-ring, a step-2 propagation round (K = 4) or the median round (K =
+    1, accepted at equality), as ``_polish_direction`` makes them."""
+    from eppm_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from eppm_tpu_torch.ops import cuda_exact as F
+    from eppm_tpu_torch.ops._util import shift2d
+    from eppm_tpu_torch.ops.dense import center_out_offsets, median3
+    from eppm_tpu_torch.ops.match import exact_best_of
+
+    (_, p1), (_, p2) = _packs(h, w, 3, -2, SEED + 6, dev)
+    gen = torch.Generator(dev).manual_seed(SEED + 6)
+
+    def near(v):
+        return (v + torch.randint(-1, 2, (h, w), generator=gen, device=dev,
+                                  dtype=torch.int32)).contiguous()
+
+    gx = near(torch.full((h, w), 3, dtype=torch.int32, device=dev))
+    gy = near(torch.full((h, w), -2, dtype=torch.int32, device=dev))
+    ecfg = dataclasses.replace(cfg.cost,
+                               patch_stride=cfg.match.exact_tap_stride)
+    cur = exact_best_of(p1, p2, gx[None], gy[None], None, ecfg)
+    strict = call != "median"
+    if call == "score":
+        cgx, cgy, cur = gx[None], gy[None], None
+    elif call == "ring":
+        ring = [c for c in center_out_offsets(cfg.match.exact_polish_radius)
+                if c != (0, 0)]
+        cgy = torch.stack([gy + m for m, _ in ring])
+        cgx = torch.stack([gx + n for _, n in ring])
+    elif call == "propagate":
+        step = cfg.match.exact_prop_steps[0]
+        shifts = ((0, -step), (0, step), (-step, 0), (step, 0))
+        cgy = torch.stack([shift2d(gy, a, b) for a, b in shifts])
+        cgx = torch.stack([shift2d(gx, a, b) for a, b in shifts])
+    else:
+        cgx, cgy = median3(gx)[None], median3(gy)[None]
+    k = cgx.shape[0]
+
+    def kernel():
+        return F.exact_best_of_cuda(p1, p2, cgx, cgy, cur, ecfg, strict)
+
+    def plain():
+        return exact_best_of(p1, p2, cgx, cgy, cur, ecfg, strict)
+
+    got, ref = kernel(), plain()
+    same = all(torch.equal(a, b) for a, b in zip(got, ref))
+    err = float((got[2] - ref[2]).abs().max())
+    moved = 0.0 if cur is None else float((got[0] != cur[0]).float().mean())
+    # the wrapper's host work outlasts the launch at this size: the
+    # kernel's time is device time
+    ms = device_ms(kernel, 50)
+    call_ms = cuda_ms(kernel, 50)
+    pms = cuda_ms(plain, 3)
+    taps = k * h * w * len(ecfg.tap_offsets)
+    # packs read as float4, the offsets and the incumbent in, the state out
+    nbytes = h * w * (2 * 16 + k * 8 + (24 if cur is not None else 4))
+    ops_ms, _ = bound(taps * EXACT_TAP_OPS, F32_FLOPS, nbytes)
+    bms, by = bound(taps * EXACT_TAP_CONVERSIONS, CONVERSIONS_PER_S, nbytes)
+    by = "float64 conversions" if by == "operations" else by
+    log(f"exact {call} {h}x{w} K={k} taps={len(ecfg.tap_offsets)}: "
+        f"{'identical' if same else 'DIFFER'} (max |diff| {err:.3g}; "
+        f"{moved:.2%} of the offsets replaced)  kernel {ms:.4f} ms (device;"
+        f" the call by events {call_ms:.4f} ms)  plain {pms:.3f} ms  bound "
+        f"{bms:.4f} ms ({by}, {bms / ms:.1%} of it reached; float32 "
+        f"operations {ops_ms:.4f} ms, {ops_ms / ms:.1%})")
+    check(same, f"kernel F {call} {h}x{w}: differs from its plain version")
+    row = rows.setdefault("exact_best_of", {"max_abs_err": 0.0})
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    row.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+               library_ms=None, call_ms=call_ms, ops_bound_ms=ops_ms,
+               ms_basis="device time (a spin kernel holds the stream while "
+               "the host enqueues)")
+
+
 def interior(h: int, w: int, dx: int, dy: int, margin: int) -> np.ndarray:
     """Pixels whose target under the shift (dx, dy) lies in the frame,
     ``margin`` px away from every border."""
@@ -1004,8 +1109,8 @@ def interior_epe(flow: np.ndarray, dx: int, dy: int, margin: int) -> float:
 
 def counters() -> dict:
     """Each kernel's launch counter, by the name of its row."""
-    from eppm_tpu_torch.ops import cuda_cost, cuda_match, cuda_patchmatch
-    from eppm_tpu_torch.ops import cuda_smooth, cuda_wmf
+    from eppm_tpu_torch.ops import cuda_cost, cuda_exact, cuda_match
+    from eppm_tpu_torch.ops import cuda_patchmatch, cuda_smooth, cuda_wmf
 
     return {
         "cost_terms": cuda_cost.TERMS,
@@ -1017,6 +1122,7 @@ def counters() -> dict:
         "residual_costs_planes": cuda_cost.PLANES,
         "global_argmax": cuda_match.KERNEL,
         "patchmatch_costs": cuda_patchmatch.KERNEL,
+        "exact_best_of": cuda_exact.KERNEL,
     }
 
 
@@ -1088,6 +1194,7 @@ PROFILED = {
     "kernel C (wmf_list_kernel + wmf_median_kernel)": (
         ("wmf_list_kernel", "wmf_median_kernel"), ("weighted_median_filter",)),
     "patchmatch_kernel": (("patchmatch_kernel",), ("patchmatch_costs",)),
+    "exact_kernel": (("exact_kernel",), ("exact_best_of",)),
 }
 
 
@@ -1330,7 +1437,7 @@ def stream_case(dev, h=480, w=640, dx=3, dy=-2, seed=SEED + 30,
 
 PM_CFG = dict(match_engine="patchmatch")
 # the dense matcher's kernels: the PatchMatch engine bypasses them
-DENSE_MATCHER = ["residual_costs_multiwarp", "global_argmax"]
+DENSE_MATCHER = ["residual_costs_multiwarp", "global_argmax", "exact_best_of"]
 
 
 def pm_case(model, dev, h, w, dx, dy, seed) -> None:
@@ -1531,7 +1638,8 @@ def sharded_cases(dev) -> dict:
     name = torch.cuda.get_device_name(dev)
     model = EPPMFlow(cfg)
     default = ["cost_terms", "residual_costs", "residual_costs_multiwarp",
-               "flow_smoothing_paired", "weighted_median_filter"]
+               "flow_smoothing_paired", "weighted_median_filter",
+               "exact_best_of"]
     launches = {}
     h, w, dx, dy = 1080, 1920, 5, 3
     f1, f2 = shifted_pair(h, w, dx, dy, SEED + 60)
@@ -1581,7 +1689,8 @@ def sharded_cases(dev) -> dict:
                 "residual_costs": ref_per["residual_costs"] + extra,
                 "cost_terms": ref_per["cost_terms"] + extra,
                 "residual_costs_multiwarp": ref_per["residual_costs_multiwarp"],
-                "weighted_median_filter": ref_per["weighted_median_filter"]}
+                "weighted_median_filter": ref_per["weighted_median_filter"],
+                "exact_best_of": ref_per["exact_best_of"]}
         for row, n in want.items():
             check(per[row] == n, f"{path}: {row} {per[row]} launches a pair, "
                   f"expected {n}")
@@ -1667,7 +1776,8 @@ def phase_end_to_end(dev) -> dict:
         (480, 640, -70, 44, SEED + 13),
     ]
     default = ["cost_terms", "residual_costs", "residual_costs_multiwarp",
-               "flow_smoothing_paired", "weighted_median_filter"]
+               "flow_smoothing_paired", "weighted_median_filter",
+               "exact_best_of"]
     # radius 6 (the CLI's example): the one-pass smoothing kernel
     radius6 = dataclasses.replace(cfg, refine=dataclasses.replace(
         cfg.refine, blf_sigma_spatial=3.0))
@@ -1686,14 +1796,16 @@ def phase_end_to_end(dev) -> dict:
         log(f"-- {path}: EPPMFlow")
         model = EPPMFlow(pcfg)
         # one smoothing per fine level and one at the end: 3 per 640x480
-        # pair (3 levels), 4 per 1080p pair (4 levels)
+        # pair (3 levels), 4 per 1080p pair (4 levels); kernel F 4 times a
+        # direction
         smooth = ("flow_smoothing" if path == "radius 6"
                   else "flow_smoothing_paired")
         holes = []
         launches[path] = drive(path, kernels, lambda: polish_holes(
             holes, lambda: [
                 flow_case(model, dev, *case,
-                          expect={smooth: 3 if case[0] == 480 else 4})
+                          expect={smooth: 3 if case[0] == 480 else 4,
+                                  "exact_best_of": 8})
                 for case in pcases]))
         log(f"kernel C's polish calls on the {path} path: "
             + ", ".join(f"{h}x{w} {share:.2%}" for h, w, share in holes)
@@ -1952,7 +2064,8 @@ def pm_agreement(dev) -> None:
 # form), B, C and E
 DOSSIER_KERNELS = {
     "dense": ["cost_terms", "residual_costs", "residual_costs_multiwarp",
-              "flow_smoothing_paired", "weighted_median_filter"],
+              "flow_smoothing_paired", "weighted_median_filter",
+              "exact_best_of"],
     "patchmatch": ["cost_terms", "residual_costs", "flow_smoothing_paired",
                    "weighted_median_filter", "patchmatch_costs"],
 }
@@ -2388,6 +2501,8 @@ def phase_upstream(dev) -> None:
               f" launches a pair, expected {n}")
         check(counts.get("flow_smoothing_paired", 0) == 3,
               "upstream: kernel B not 3 launches a pair")
+        check(counts.get("exact_best_of", 0) == 0,
+              "upstream: kernel F launched")
     log_capture(GRAPHS.entries[graph_key(img1, img2, ucfg, False, None,
                                          None)])
 
@@ -2506,6 +2621,10 @@ SOURCES = {  # name: (source, the TPU kernel it replaces, the path it runs on)
                          "none: the JAX package computes this cost in XLA "
                          "(eppm_tpu/ops/cost.py::_patch_cost_offsets)",
                          "patchmatch"),
+    "exact_best_of": ("eppm_tpu_torch/csrc/exact.cu",
+                      "none: the JAX package computes this stage in XLA "
+                      "(eppm_tpu/ops/match.py::_polish_direction)",
+                      "default"),
 }
 
 
@@ -2540,7 +2659,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("call_ms", "ms_basis") if k in r},
+            **{k: r[k] for k in ("call_ms", "ops_bound_ms", "ms_basis")
+               if k in r},
         })
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -23,11 +23,15 @@ hypothesis is a static integer tap table (``plane_offsets``).
 The gathered costs (the exact stage, the plane-fitting re-search of
 ``refine_impl="gather"``, PatchMatch's) read frame-2 taps at per-pixel
 targets; they are not Pallas kernels in the JAX package.  The exact
-stage's stays plain torch here; ``patch_cost_offsets`` over any tap
-tables has a CUDA kernel, kernel E (``ops/cuda_patchmatch.py``), which
-``patch_cost``, ``patch_cost_candidates`` and ``patch_cost_planefitting``
-take for CUDA tensors (``patch_cost_offsets`` and ``patch_cost_tables``
-stay the plain versions on every device).
+stage's (``patch_cost_stack`` on the bfloat16 stack, quantized, and its
+argmin and accept) has a CUDA kernel, kernel F (``ops/cuda_exact.py``,
+plain version ``ops/match.py::exact_best_of``); the photometric
+arbitration's ``patch_cost_stack`` stays plain torch.
+``patch_cost_offsets`` over any tap tables has a CUDA kernel, kernel E
+(``ops/cuda_patchmatch.py``), which ``patch_cost``,
+``patch_cost_candidates`` and ``patch_cost_planefitting`` take for CUDA
+tensors (``patch_cost_offsets`` and ``patch_cost_tables`` stay the plain
+versions on every device).
 """
 
 from __future__ import annotations

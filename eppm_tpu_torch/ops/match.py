@@ -4,7 +4,8 @@ Two engines, fused: a global descriptor argmax (every pixel scores every
 target with a descriptor dot product — large-displacement recall, the
 role of PatchMatch's random init) and a dense local descent down a
 mini-pyramid with the true bilateral AD+census cost, followed by dense
-jump-flood propagation, a polish sweep and an exact-cost stage.  Returns
+jump-flood propagation, a polish sweep and an exact-cost stage (kernel F
+on the card, ``exact_best_of`` its plain version).  Returns
 absolute int32 target fields and their cost, for one direction
 (``match_coarse``) or both (``match_coarse_bidi``).
 
@@ -41,6 +42,7 @@ __all__ = [
     "propagate_dense",
     "match_coarse",
     "match_coarse_bidi",
+    "exact_best_of",
 ]
 
 
@@ -479,11 +481,55 @@ def match_coarse_bidi(
     return fwd, bwd
 
 
+def exact_best_of(pack1, pack2, cgxs, cgys, cur, cfg: CostConfig,
+                  strict: bool = True):
+    """One step of the exact stage over K candidate offset fields (K, H,
+    W) int32: their exact quantized cost (``patch_cost_stack`` on the
+    bfloat16 tap stack of ``cfg.tap_offsets``; targets outside frame 2
+    masked to FLT_MAX), the first per-pixel least of them accepted
+    against the incumbent ``cur`` = (gx, gy, cost) on a strictly lower
+    cost (``strict``) or at equality -> the new (gx, gy, cost).  With
+    ``cur`` None, one field (K = 1) scored, unmasked: (gx, gy, cost).
+    The plain version of kernel F (``ops/cuda_exact.py``), which
+    ``exact_best_of_auto`` takes for CPU tensors."""
+    h, w = cgxs.shape[-2:]
+    h2, w2 = pack2.shape[0], pack2.shape[1]
+    ys, xs = grid(h, w, pack1.device)
+    offs2 = cfg.tap_offsets
+    stack2 = make_patch_stack(pack2, offs2, dtype=torch.bfloat16)
+
+    def exact_multi(cgxs, cgys, mask_oob=True):
+        """Exact quantized cost of K offset fields (K, H, W)."""
+        ctxs = xs[None] + cgxs
+        ctys = ys[None] + cgys
+        ck = quantize_cost(
+            patch_cost_stack(pack1, stack2, ctxs, ctys, cfg, offs2))
+        if mask_oob:
+            inb = (ctxs >= 0) & (ctxs < w2) & (ctys >= 0) & (ctys < h2)
+            ck = torch.where(inb, ck, FLT_MAX)
+        return ck
+
+    if cur is None:
+        return cgxs[0], cgys[0], exact_multi(cgxs, cgys, mask_oob=False)[0]
+    gx0, gy0, cost0 = cur
+    ck = exact_multi(cgxs, cgys)
+    i1 = torch.argmin(ck, dim=0)[None]
+    cbest = torch.gather(ck, 0, i1)[0]
+    cgx = torch.gather(cgxs, 0, i1)[0]
+    cgy = torch.gather(cgys, 0, i1)[0]
+    win = (cbest < cost0) if strict else (cbest <= cost0)
+    return (torch.where(win, cgx, gx0), torch.where(win, cgy, gy0),
+            torch.where(win, cbest, cost0))
+
+
 def _polish_direction(pack1, pack2, flow, cost, match_cfg: MatchConfig,
                       cost_cfg: CostConfig, tap_chunk: int = TAP_CHUNK):
     """Shared tail of the coarse matcher: dense jump-flood propagation,
     the final polish sweep, and the exact-cost stage (symmetric gathered
-    cost on a bf16 tap stack: polish ring, propagation, median consensus)."""
+    cost on a bf16 tap stack: polish ring, propagation, median consensus),
+    one ``exact_best_of`` a step: kernel F on the card."""
+    from .cuda_exact import exact_best_of_auto
+
     h, w = flow.shape[0], flow.shape[1]
     if match_cfg.prop_steps:
         flow, cost = propagate_dense(
@@ -499,39 +545,16 @@ def _polish_direction(pack1, pack2, flow, cost, match_cfg: MatchConfig,
     if match_cfg.exact_polish_radius <= 0:
         return xs + gx, ys + gy, cost
 
-    h2, w2 = pack2.shape[0], pack2.shape[1]
     exact_cfg = dataclasses.replace(
         cost_cfg, patch_stride=match_cfg.exact_tap_stride
     )
-    offs2 = exact_cfg.tap_offsets
-    stack2 = make_patch_stack(pack2, offs2, dtype=torch.bfloat16)
-
-    def exact_multi(cgxs, cgys, mask_oob=True):
-        """Exact quantized cost of K offset fields (K, H, W)."""
-        ctxs = xs[None] + cgxs
-        ctys = ys[None] + cgys
-        ck = quantize_cost(
-            patch_cost_stack(pack1, stack2, ctxs, ctys, exact_cfg, offs2))
-        if mask_oob:
-            inb = (ctxs >= 0) & (ctxs < w2) & (ctys >= 0) & (ctys < h2)
-            ck = torch.where(inb, ck, FLT_MAX)
-        return ck
 
     def best_of(cgxs, cgys, cur, strict=True):
-        """First per-pixel minimum over K candidate fields, accepted
-        against the incumbent (strictly, or at equality)."""
-        gx0, gy0, cost0 = cur
-        ck = exact_multi(cgxs, cgys)
-        i1 = torch.argmin(ck, dim=0)[None]
-        cbest = torch.gather(ck, 0, i1)[0]
-        cgx = torch.gather(cgxs, 0, i1)[0]
-        cgy = torch.gather(cgys, 0, i1)[0]
-        win = (cbest < cost0) if strict else (cbest <= cost0)
-        return (torch.where(win, cgx, gx0), torch.where(win, cgy, gy0),
-                torch.where(win, cbest, cost0))
+        return exact_best_of_auto(pack1, pack2, cgxs, cgys, cur, exact_cfg,
+                                  strict)
 
     # incumbent, exactly scored (unmasked)
-    cost = exact_multi(gx[None], gy[None], mask_oob=False)[0]
+    gx, gy, cost = best_of(gx[None], gy[None], None)
     ring = [c for c in center_out_offsets(match_cfg.exact_polish_radius)
             if c != (0, 0)]
     cgys = torch.stack([gy + m for (m, _) in ring])

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (A: residual cost, with its plane mode; B: flow
 smoothing; C: weighted median; D: global descriptor argmax; E: PatchMatch's
-gathered cost and fold) and their dispatch.
+gathered cost and fold; F: the dense matcher's exact stage) and their
+dispatch.
 
 Tests marked ``gpu`` build the kernels with nvcc and run them against
 their plain PyTorch versions on the card (run them on a GPU host, which
@@ -18,13 +19,18 @@ import torch
 
 from eppm_tpu_torch import pipeline
 from eppm_tpu_torch.config import DEFAULT_CONFIG as CFG
-from eppm_tpu_torch.config import INVALID_LOCATION, UNKNOWN_FLOW, RefineConfig
-from eppm_tpu_torch.ops import _build, cuda_cost, cuda_match, cuda_smooth
-from eppm_tpu_torch.ops import cuda_patchmatch, cuda_wmf, match, occlusion
+from eppm_tpu_torch.config import (FLT_MAX, INVALID_LOCATION, UNKNOWN_FLOW,
+                                   UPSTREAM_CONFIG, RefineConfig)
+from eppm_tpu_torch.ops import _build, cuda_cost, cuda_exact, cuda_match
+from eppm_tpu_torch.ops import cuda_patchmatch, cuda_smooth, cuda_wmf, match
+from eppm_tpu_torch.ops import occlusion
 from eppm_tpu_torch.ops import patchmatch as pm
 from eppm_tpu_torch.ops._util import grid
 from eppm_tpu_torch.ops.census import census_transform
-from eppm_tpu_torch.ops.cost import pack_frame, plane_offsets
+from eppm_tpu_torch.ops.cost import (ad_census, census_lut, cost_constants,
+                                     make_patch_stack, pack_frame,
+                                     patch_cost_stack, plane_offsets,
+                                     quantize_cost)
 from eppm_tpu_torch.ops.dense import center_out_offsets
 from eppm_tpu_torch.ops.refine import fill_holes
 from eppm_tpu_torch.testing import dark_rows
@@ -83,8 +89,98 @@ DEFAULT_PATH = (cuda_cost.TERMS, cuda_cost.SINGLE, cuda_cost.MULTIWARP,
 
 def _counts(kernels=DEFAULT_PATH + (cuda_cost.PLANES, cuda_match.KERNEL,
                                     cuda_smooth.KERNEL,
-                                    cuda_patchmatch.KERNEL)):
+                                    cuda_patchmatch.KERNEL,
+                                    cuda_exact.KERNEL)):
     return tuple(k.launches for k in kernels)
+
+
+# the exact stage's cost: the default taps at the exact stage's stride
+EXACT_CFG = dataclasses.replace(CFG.cost,
+                                patch_stride=CFG.match.exact_tap_stride)
+EXACT_RULES = [(1, "score"), (1, "strict"), (1, "equal"), (4, "strict"),
+               (4, "equal"), (8, "strict"), (8, "equal")]
+
+
+def _old_exact_stage(pack1, pack2, exact_cfg, h, w):
+    """The exact stage's two closures as ``ops/match.py::
+    _polish_direction`` held them before kernel F, verbatim (with their
+    setup): the oracle of ``exact_best_of``."""
+    ys, xs = grid(h, w, pack1.device)
+    h2, w2 = pack2.shape[0], pack2.shape[1]
+    offs2 = exact_cfg.tap_offsets
+    stack2 = make_patch_stack(pack2, offs2, dtype=torch.bfloat16)
+
+    def exact_multi(cgxs, cgys, mask_oob=True):
+        """Exact quantized cost of K offset fields (K, H, W)."""
+        ctxs = xs[None] + cgxs
+        ctys = ys[None] + cgys
+        ck = quantize_cost(
+            patch_cost_stack(pack1, stack2, ctxs, ctys, exact_cfg, offs2))
+        if mask_oob:
+            inb = (ctxs >= 0) & (ctxs < w2) & (ctys >= 0) & (ctys < h2)
+            ck = torch.where(inb, ck, FLT_MAX)
+        return ck
+
+    def best_of(cgxs, cgys, cur, strict=True):
+        """First per-pixel minimum over K candidate fields, accepted
+        against the incumbent (strictly, or at equality)."""
+        gx0, gy0, cost0 = cur
+        ck = exact_multi(cgxs, cgys)
+        i1 = torch.argmin(ck, dim=0)[None]
+        cbest = torch.gather(ck, 0, i1)[0]
+        cgx = torch.gather(cgxs, 0, i1)[0]
+        cgy = torch.gather(cgys, 0, i1)[0]
+        win = (cbest < cost0) if strict else (cbest <= cost0)
+        return (torch.where(win, cgx, gx0), torch.where(win, cgy, gy0),
+                torch.where(win, cbest, cost0))
+
+    return exact_multi, best_of
+
+
+# frame 2 repeats every EXACT_PERIOD columns, so targets that far apart
+# cost alike away from its borders: ties between candidates, and between
+# a candidate and the incumbent
+EXACT_PERIOD = 8
+
+
+def _exact_case(k, h, w, h2, w2, seed, device="cpu"):
+    """Packs and fields for kernel F: frame 1 (h, w) random, frame 2 (h2,
+    w2) random rows repeating every ``EXACT_PERIOD`` columns; an
+    incumbent offset field near (2, -1) and its unmasked cost; K candidate
+    fields around it, with (row 0) targets at frame 2's clamped edges and
+    just past them, (row 1) candidate 0 tying with the incumbent a period
+    to its right, (row 2) the incumbent far left and every candidate
+    farther left (all masked), the incumbent's cost FLT_MAX on its first
+    columns, (row 3) offsets near the int32 ends whose targets wrap, and
+    on every third column candidate 1 a period right of candidate 0."""
+    rng = np.random.default_rng(seed)
+    img1 = rng.random((h, w, 3)).astype(np.float32)
+    img2 = np.tile(rng.random((h2, EXACT_PERIOD, 3)).astype(np.float32),
+                   (1, -(-w2 // EXACT_PERIOD), 1))[:, :w2]
+    p1, p2 = (pack_frame(t, census_transform(t)).to(device).contiguous()
+              for t in (torch.from_numpy(img1),
+                        torch.from_numpy(np.ascontiguousarray(img2))))
+    xs = np.arange(w)[None, :]
+    gx0 = (2 + rng.integers(-2, 3, (h, w))).astype(np.int64)
+    gy0 = (-1 + rng.integers(-2, 3, (h, w))).astype(np.int64)
+    cgx = gx0[None] + rng.integers(-3, 4, (k, h, w))
+    cgy = gy0[None] + rng.integers(-2, 3, (k, h, w))
+    cgx[:, 0, :] = (np.array([w2 - 1, w2, 0, -1] * w)[:w][None] - xs
+                    + np.arange(k)[:, None] % 2)
+    cgx[0, 1], cgy[0, 1] = gx0[1] + EXACT_PERIOD, gy0[1]
+    gx0[2] = -1000
+    cgx[:, 2] = -1000 * (np.arange(k) + 2)[:, None]
+    cgx[:, 3, ::2] = 2**31 - 2 - np.arange(k)[:, None]
+    cgx[:, 3, 1::2] = -(2**31) + np.arange(k)[:, None]
+    if k >= 2:
+        cgx[1, :, ::3], cgy[1, :, ::3] = (cgx[0, :, ::3] + EXACT_PERIOD,
+                                          cgy[0, :, ::3])
+    gx0, gy0, cgx, cgy = (torch.from_numpy(a.astype(np.int32)).to(device)
+                          .contiguous() for a in (gx0, gy0, cgx, cgy))
+    exact_multi, _ = _old_exact_stage(p1, p2, EXACT_CFG, h, w)
+    cost0 = exact_multi(gx0[None], gy0[None], mask_oob=False)[0]
+    cost0[2, :4] = FLT_MAX
+    return p1, p2, (gx0, gy0, cost0), cgx, cgy
 
 
 # --- anywhere -------------------------------------------------------------
@@ -120,6 +216,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             [CFG.cost.tap_offsets]),
         lambda: cuda_patchmatch.propagate_candidates_cuda(
             p1, p2, tx, ty, cost, 1, CFG.cost, [CFG.cost.tap_offsets]),
+        lambda: cuda_exact.exact_best_of_cuda(p1, p2, tx[None], ty[None],
+                                              None, EXACT_CFG),
+        lambda: cuda_exact.exact_best_of_cuda(p1, p2, tx[None], ty[None],
+                                              (tx, ty, cost), EXACT_CFG),
     ]
     before = _counts()
     for call in calls:
@@ -156,6 +256,12 @@ def test_dispatchers_take_plain_versions_on_cpu_only():
              pm.propagate_candidates(p1, p2, tx, ty, cost, 2, CFG.cost,
                                      tables))):
         assert all(torch.equal(g, w) for g, w in zip(got, want))
+    cur = (tx, ty, cost)
+    for strict in (True, False):
+        got = cuda_exact.exact_best_of_auto(p1, p2, txs, tys, cur, EXACT_CFG,
+                                            strict)
+        want = match.exact_best_of(p1, p2, txs, tys, cur, EXACT_CFG, strict)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert _counts() == before
     meta = torch.empty((8, 12, 4), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -168,6 +274,56 @@ def test_dispatchers_take_plain_versions_on_cpu_only():
     with pytest.raises(ValueError, match="unsupported device"):
         cuda_patchmatch.patch_cost_tables_auto(meta, meta, tx, ty, CFG.cost,
                                                tables)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_exact.exact_best_of_auto(meta, meta, tx[None], ty[None], None,
+                                      EXACT_CFG)
+
+
+@pytest.mark.parametrize("k,rule", EXACT_RULES)
+@pytest.mark.parametrize("frame2", [(20, 28), (17, 40)])
+def test_exact_best_of_is_the_old_exact_stage(k, rule, frame2):
+    """``exact_best_of_auto`` on CPU tensors returns exactly what the
+    exact stage's closures returned before kernel F: the incumbent's
+    unmasked score, or the first least of K candidate fields accepted
+    strictly or at equality, with targets at and past frame 2's clamped
+    edges, far outside it and wrapping past the int32 ends, ties between
+    candidates and with the incumbent, and a frame 2 of another size."""
+    h, w = 20, 28
+    p1, p2, cur, cgx, cgy = _exact_case(k, h, w, *frame2, seed=k + 7)
+    exact_multi, best_of = _old_exact_stage(p1, p2, EXACT_CFG, h, w)
+    if rule == "score":
+        got = cuda_exact.exact_best_of_auto(p1, p2, cur[0][None],
+                                            cur[1][None], None, EXACT_CFG)
+        want = (cur[0], cur[1],
+                exact_multi(cur[0][None], cur[1][None], mask_oob=False)[0])
+    else:
+        strict = rule == "strict"
+        got = cuda_exact.exact_best_of_auto(p1, p2, cgx, cgy, cur,
+                                            EXACT_CFG, strict)
+        want = best_of(cgx, cgy, cur, strict)
+        # the case holds what it is meant to: ties the rule decides
+        other = best_of(cgx, cgy, cur, not strict)
+        assert not torch.equal(want[0], other[0])
+        ck = exact_multi(cgx, cgy)
+        if k >= 2:
+            assert bool(((ck[0] == ck[1]) & (cgx[0] != cgx[1])
+                         & (ck[0] < FLT_MAX)).any())
+        assert bool((ck == FLT_MAX).any()) and bool((ck < FLT_MAX).any())
+    assert all(torch.equal(g, v) for g, v in zip(got, want))
+
+
+def test_census_lut_gives_ad_census_bits():
+    """Kernels E and F look the census term up in ``census_lut``: for
+    every pair of 8-bit signatures on taps of one colour (so c_ad is
+    exactly 0), ``ad_census`` equals the table's entry for their XOR."""
+    inv_lam_ad2, inv_lam_cen2, _ = cost_constants(EXACT_CFG)
+    a, b = torch.meshgrid(torch.arange(256), torch.arange(256),
+                          indexing="ij")
+    rgb = torch.full((256, 256, 3), 0.25)
+    p1 = torch.cat([rgb, a[..., None].float()], dim=-1)
+    p2 = torch.cat([rgb, b[..., None].float()], dim=-1)
+    assert torch.equal(ad_census(p1, p2, inv_lam_ad2, inv_lam_cen2),
+                       census_lut(inv_lam_cen2)[a ^ b])
 
 
 def test_argument_checks_reject_what_the_kernels_do_not_take():
@@ -246,6 +402,67 @@ def test_argument_checks_reject_what_the_kernels_do_not_take():
     for many in (tables * 5, [tables[0][:-1]]):
         with pytest.raises(ValueError, match="tables"):
             check(p1, p2, txs, tys, CFG.cost, many)
+
+
+def _exact_bad_args(name):
+    """Kernel F's arguments with one fault: (arguments, config, match)."""
+    (_, p1), (_, p2) = _packs(8, 12)
+    tx, ty, _ = _wmf_inputs(8, 12)
+    cost = torch.zeros((8, 12))
+    cgx, cgy = tx.repeat(4, 1, 1), ty.repeat(4, 1, 1)
+    cur = (tx, ty, cost)
+    wide = dataclasses.replace(EXACT_CFG, patch_stride=1)   # 361 taps
+    far = dataclasses.replace(EXACT_CFG, patch_radius=33, patch_stride=11)
+    return {
+        "int64 offsets": ((p1, p2, cgx.long(), cgy, cur), EXACT_CFG, "int32"),
+        "float64 pack": ((p1.double(), p2, cgx, cgy, cur), EXACT_CFG,
+                         "float32"),
+        "float64 cost": ((p1, p2, cgx, cgy, (tx, ty, cost.double())),
+                         EXACT_CFG, "float32"),
+        "(H, W) offsets": ((p1, p2, tx, ty, cur), EXACT_CFG,
+                           r"\(K, H, W\)"),
+        "offsets unlike": ((p1, p2, cgx, cgy[:2], cur), EXACT_CFG, "shape"),
+        "incumbent's shape": ((p1, p2, cgx, cgy, (tx, ty, cost[:4])),
+                              EXACT_CFG, "shape"),
+        "frame 1's shape": ((p1[:6], p2, cgx, cgy, cur), EXACT_CFG, "shape"),
+        "strided offsets": ((p1, p2, cgx.transpose(1, 2).contiguous()
+                             .transpose(1, 2), cgy, cur), EXACT_CFG,
+                            "contiguous"),
+        "strided pack": ((p1, p2.transpose(0, 1).contiguous()
+                          .transpose(0, 1), cgx, cgy, cur), EXACT_CFG,
+                         "contiguous"),
+        "misaligned pack": ((p1, torch.zeros(8 * 12 * 4 + 1)[1:]
+                             .view(8, 12, 4), cgx, cgy, cur), EXACT_CFG,
+                            "boundary"),
+        "33 candidates": ((p1, p2, tx.repeat(33, 1, 1), ty.repeat(33, 1, 1),
+                           cur), EXACT_CFG, "candidates"),
+        "scoring 4 fields": ((p1, p2, cgx, cgy, None), EXACT_CFG,
+                             "one field"),
+        "361 taps": ((p1, p2, cgx, cgy, cur), wide, "taps"),
+        "taps beyond the reach": ((p1, p2, cgx, cgy, cur), far, "within"),
+    }[name]
+
+
+@pytest.mark.parametrize("name", [
+    "int64 offsets", "float64 pack", "float64 cost", "(H, W) offsets",
+    "offsets unlike", "incumbent's shape", "frame 1's shape",
+    "strided offsets", "strided pack", "misaligned pack", "33 candidates",
+    "scoring 4 fields", "361 taps", "taps beyond the reach"])
+def test_exact_args_checks_reject_what_kernel_f_does_not_take(name):
+    """``check_exact_args`` passes the exact stage's arguments (one
+    scored field; 8, 32 candidates against an incumbent) and refuses
+    each fault: dtypes, shapes, contiguity, alignment, the candidate
+    and tap limits."""
+    (_, p1), (_, p2) = _packs(8, 12)
+    tx, ty, _ = _wmf_inputs(8, 12)
+    cur = (tx, ty, torch.zeros((8, 12)))
+    check = cuda_exact.check_exact_args
+    check(p1, p2, tx[None], ty[None], None, EXACT_CFG)
+    for k in (8, 32):
+        check(p1, p2, tx.repeat(k, 1, 1), ty.repeat(k, 1, 1), cur, EXACT_CFG)
+    args, cfg, match_ = _exact_bad_args(name)
+    with pytest.raises(ValueError, match=match_):
+        check(*args, cfg)
 
 
 def test_main_path_hands_kernels_arguments_they_take(monkeypatch):
@@ -342,6 +559,38 @@ def test_patchmatch_path_hands_kernel_e_arguments_it_takes(monkeypatch):
                         2 * iters * len(cfg.patchmatch.prop_steps),
                     "select_candidates_auto": 2 * iters}
     assert sum(seen.values()) == 102
+
+
+@pytest.mark.parametrize("config,calls", [("default", 8), ("patchmatch", 0),
+                                          ("upstream", 0)])
+def test_dense_path_hands_kernel_f_arguments_it_takes(monkeypatch, config,
+                                                      calls):
+    """``compute_flow`` on the CPU with kernel F's dispatcher wrapped in
+    its argument check: under ``DEFAULT_CONFIG`` every call passes, 8 a
+    pair (each direction: the incumbent's score, the 8-ring, one step-2
+    propagation round of 4, one median round at equality); the
+    PatchMatch engine and ``UPSTREAM_CONFIG`` never call it."""
+    seen = []
+    orig = cuda_exact.exact_best_of_auto
+
+    def checked(p1, p2, cgxs, cgys, cur, cfg, strict=True):
+        cuda_exact.check_exact_args(p1, p2, cgxs, cgys, cur, cfg)
+        assert cfg == EXACT_CFG
+        seen.append((cgxs.shape[0], cur is None, strict))
+        return orig(p1, p2, cgxs, cgys, cur, cfg, strict)
+
+    monkeypatch.setattr(cuda_exact, "exact_best_of_auto", checked)
+    cfg = {"default": CFG,
+           "patchmatch": dataclasses.replace(CFG, match_engine="patchmatch"),
+           "upstream": UPSTREAM_CONFIG}[config]
+    rng = np.random.default_rng(4)
+    img1 = torch.from_numpy((rng.random((48, 64, 3)) * 255).astype(np.uint8))
+    img2 = torch.roll(img1, (1, -2), (0, 1))
+    assert tuple(pipeline.compute_flow(img1, img2, cfg).shape) == (48, 64, 2)
+    assert len(seen) == calls
+    if calls:
+        assert seen == [(1, True, True), (8, False, True), (4, False, True),
+                        (1, False, False)] * 2
 
 
 def test_plane_and_match_paths_hand_kernels_arguments_they_take(
@@ -621,6 +870,48 @@ def test_kernel_e_patchmatch_on_the_card_matches_the_cpu(cuda, planes):
     want = run(c1, c2, pm.ThreefrySampler(prng_key(1234)), pcfg, CFG.cost)
     for g, v in zip(got, want):
         assert torch.equal(g.cpu(), v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,rule", EXACT_RULES)
+@pytest.mark.parametrize("hw", [(135, 240), (120, 160)])
+def test_kernel_f_matches_plain(cuda, hw, k, rule):
+    """Kernel F on the card, one launch a call, ``torch.equal`` to its
+    plain version on the card and on the CPU at the coarse levels of 1080p
+    and 640x480, in each rule, on ``_exact_case``'s targets (at and past
+    frame 2's clamped edges, far outside it, wrapping past the int32
+    ends, tied with each other and with the incumbent)."""
+    h, w = hw
+    p1, p2, cur, cgx, cgy = _exact_case(k, h, w, h, w, seed=k + 11)
+    if rule == "score":
+        cgx, cgy, cur = cur[0][None], cur[1][None], None
+    strict = rule != "equal"
+    cpu = (p1, p2, cgx, cgy, cur)
+    card = [t.to(cuda) for t in cpu[:4]] + [
+        None if cur is None else tuple(t.to(cuda) for t in cur)]
+    n = cuda_exact.KERNEL.launches
+    got = cuda_exact.exact_best_of_auto(*card, EXACT_CFG, strict)
+    assert cuda_exact.KERNEL.launches == n + 1
+    on_card = match.exact_best_of(*card, EXACT_CFG, strict)
+    on_cpu = match.exact_best_of(*cpu, EXACT_CFG, strict)
+    for g, c, v in zip(got, on_card, on_cpu):
+        assert g.device == cuda
+        assert torch.equal(g, c) and torch.equal(g.cpu(), v)
+
+
+@pytest.mark.gpu
+def test_kernel_f_match_coarse_bidi_on_the_card_matches_the_cpu(cuda):
+    """``match_coarse_bidi`` at a 120x160 level on the card, kernel F
+    launched 8 times (4 a direction), gives the CPU's targets and costs."""
+    (i1, p1), (i2, p2) = _packs(120, 160, seed=6)
+    n = cuda_exact.KERNEL.launches
+    gpu = match.match_coarse_bidi(i1.to(cuda), i2.to(cuda), CFG.cost,
+                                  CFG.match, p1.to(cuda), p2.to(cuda))
+    assert cuda_exact.KERNEL.launches - n == 8
+    cpu = match.match_coarse_bidi(i1, i2, CFG.cost, CFG.match, p1, p2)
+    for c, g in zip(cpu, gpu):
+        for a, b in zip(c, g):
+            assert torch.equal(a, b.cpu())
 
 
 @pytest.mark.gpu
