@@ -73,8 +73,9 @@ final line is not printed):
      previous pair's flow): ms per pair of both, and each warm pair's
      interior EPE < 1 with no global stage run;
    - the stream command line (``cli.main(["--frames-dir", ...,
-     "--out-dir", ..., "--temporal"])``) on 5 PPM frames at 640x480: a
-     .flo per pair with the motion, the fps line logged;
+     "--out-dir", ...])``) on 5 PPM frames: cold at 640x480 and 1080p,
+     and with ``--temporal`` at 640x480; a .flo per pair with the motion,
+     the fps line logged;
    - the legacy WMF order (``refine.wmf_fill_first=False``: kernel C
      ``wmf_coarse_iters`` times a pair) and the fine-level WMF
      (``fine_level_wmf=True``: kernel C once more a fine level), at
@@ -138,7 +139,7 @@ final line is not printed):
 7. graph against eager: ``compute_flow_jit`` (one CUDA graph per shape
    and configuration, ``eppm_tpu_torch/graphs.py``), its cache emptied
    first, against the eager ``compute_flow`` on the card: under
-   ``DEFAULT_CONFIG`` at 640x480 and 1080p, both plane flags,
+   ``DEFAULT_CONFIG`` at 640x480, 1080p and 2160x3840, both plane flags,
    ``refine_impl="gather"``, ``refine.blf_sigma_spatial=3.0``,
    ``refine.wmf_fill_first=False``, ``fine_level_wmf=True``,
    ``subpixel_refine``, ``dense_subpixel_fit``, the temporal warm pair,
@@ -161,18 +162,15 @@ final line is not printed):
    identical to it, its launches a replay's, kernel B once a tile a
    level), and at 1080p on (1, 1, 2) the walls of 10 replays against 5
    eager calls and a replay under the profiler;
-8. the measurement programs (``eppm_tpu_torch/bench``), each ``main(argv)``
-   in this process on the card: ``bench`` at its defaults, ``bench_table``
-   at its four shapes, ``profile_stages`` and ``profile_match`` at
-   1080x1920, ``stream_bench --frames 8`` at 480x640 and 1080x1920; each
-   exits 0 (no CUDA graph captured or evicted inside a timed window),
-   prints JSON lines that parse (logged here), and meets its gates: the
-   throughput pair's warp error under 0.5x the zero-flow one and the
-   synthetic EPE under 1, every table shape's warp gate, the stage spans
-   of a traced replay of the pair tiling its ``graph`` span (within 1%),
-   that span within 5% of CUDA events around the same replay, the traced
-   flow identical to the untraced one and the untraced graph holding no
-   mark node, the warm stream's EPE under 1;
+8. the stage profilers (``eppm_tpu_torch/bench``), each ``main(argv)``
+   in this process on the card at 1080x1920: ``profile_stages`` and
+   ``profile_match``; each exits 0 and prints JSON lines that parse
+   (logged here); the stage spans of a traced replay of the pair tile
+   its ``graph`` span (within 1%), that span is within 5% of CUDA events
+   around the same replay, the traced flow is identical to the untraced
+   one and the untraced graph holds no mark node; ``profile_match``'s
+   exact rows are kernel F's calls, ``exact_best_of`` at K = 1, 8, 4
+   and 1;
 9. the upstream deployment (``UPSTREAM_CONFIG``, linchaobao/EPPM's
    binary's settings): kernel E identical to its plain version in its
    cost-only mode over the 4 plane tables of 100 taps at K = 1 (the
@@ -206,6 +204,9 @@ import numpy as np
 import torch
 
 from eppm_tpu_torch.testing import shifted_pair, texture
+from flowbench.gather_work import TAP_OPS
+from flowbench.stats import (COST_DR1_OPS, COST_SUM_OPS, COST_TERM_OPS, PEAKS,
+                             bound_ms)
 
 SEED = 0
 
@@ -273,24 +274,20 @@ def wmf_kernel_ms(call, reps: int = 20):
     return whole - planes, whole, planes
 
 
-# Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet, dense): float32
-# outside the tensor cores, float64 on the tensor cores, device memory.
-F32_FLOPS = 67e12
+# The card's peaks (flowbench.stats.PEAKS: float32 outside the tensor
+# cores, device memory) and kernel A's and E's operation counts are the
+# benchmark's, so that a kernel's bound here and its roofline there are
+# one yardstick.  Other rates go through bound_ms's peaks: float64 on the
+# tensor cores, one H100 SXM at 700 W (NVIDIA's data sheet, dense).
 F64_TENSOR_FLOPS = 67e12
-HBM_BYTES_PER_S = 3.35e12
-# float32 operations per unit of work, counted from the kernels' sources:
-# an FMA counts 2; any other arithmetic, min, max or compare 1; abs,
-# negation, conversions and integer index arithmetic 0.  exp_cephes
-# (csrc/common.cuh) is 27 of them.  Against F32_FLOPS, which counts an FMA
-# as 2, this makes the operation bound optimistic: a lower bound.
-# Kernel A: the sums pass's dr2, weight exp, flush and two sums per
-# (candidate, pixel, tap, table); dr1 per (pixel, tap); the AD + census
-# term per (map, padded pixel).  COST_TAP_OPS is all of them per
-# (candidate, pixel, tap, table), as a one-pass kernel computes them: the
-# earlier yardstick, logged beside the bound.
-COST_SUM_OPS = 41
-COST_DR1_OPS = 5
-COST_TERM_OPS = 66
+# float32 operations per unit of work, counted from the kernels' sources
+# as flowbench.stats counts kernel A's: an FMA counts 2; any other
+# arithmetic, min, max or compare 1; abs, negation, conversions and
+# integer index arithmetic 0.  exp_cephes (csrc/common.cuh) is 27 of
+# them.  Against the float32 peak, which counts an FMA as 2, this makes
+# the operation bound optimistic: a lower bound.  COST_TAP_OPS is all of
+# kernel A's per (candidate, pixel, tap, table), as a one-pass kernel
+# computes them: the earlier yardstick, logged beside the bound.
 COST_TAP_OPS = COST_TERM_OPS + COST_DR1_OPS + COST_SUM_OPS  # 112
 # Kernel B (csrc/smooth.cu): the range weight once per unordered in-image
 # pair that a known tap reads (dr 5, square and scale 2, exp 27, spatial
@@ -307,11 +304,6 @@ SMOOTH_ONE_PASS_OPS = SMOOTH_PAIR_OPS + SMOOTH_TAP_OPS  # 43
 # earlier yardstick, every support at every pixel, is logged beside it.
 WMF_SUPPORT_OPS = 38
 WMF_PAIR_OPS = 5
-# Kernel E (csrc/patchmatch.cu), per (candidate, pixel, tap, table): two
-# exps 54, three maxabs3 15, the range weight's squares, sum, scale, spatial
-# scale and flush 6, ad's square and scale 2, 1 - exp 1, the term's sum and
-# product 2, the two partial sums 2.
-PM_TAP_OPS = 82
 # Kernel F (csrc/exact.cu), per (candidate, pixel, tap): two exps 54, three
 # maxabs3 15, the range weight's square, fused sum 2, scale, spatial scale
 # and flush 6, ad's square and scale 2, 1 - exp 1, the term's sum 1, the
@@ -327,13 +319,16 @@ EXACT_TAP_CONVERSIONS = 2 * 19 + 3 + 4
 CONVERSIONS_PER_S = 132 * 16 * 1.98e9
 
 
-def bound(ops: float, peak: float, nbytes: float):
-    """(bound_ms, bound_by): the least time for ``ops`` operations at
-    ``peak`` and for ``nbytes`` (inputs read once, outputs written once)
-    at the memory rate, the larger of the two."""
-    t_ops = ops / peak * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+def kernel_e_bound(k: int, h: int, w: int, taps: int, tables: int,
+                   mode: str):
+    """(bound_ms, bound_by) of one launch of kernel E in ``mode`` (cost,
+    fold or propagate) over ``k`` candidate fields at ``h`` x ``w``, each
+    scored over ``tables`` tables of ``taps`` taps: ``TAP_OPS`` a
+    (candidate, pixel, tap, table); both packs read as float4, the
+    candidates' targets in, and the costs (cost-only) or the incumbent in
+    and the folded state out."""
+    nbytes = h * w * (2 * 16 + k * 8 + (24 if mode != "cost" else k * 4))
+    return bound_ms(k * h * w * taps * tables * TAP_OPS, nbytes)
 
 
 def window_count(mask: torch.Tensor, offsets) -> torch.Tensor:
@@ -604,13 +599,14 @@ def phase_kernels(dev) -> dict:
         frame_bytes = h * w * 16 * (1 + (1 if frames.dim() == 3
                                          else frames.shape[0]))
         sums = len(cands) * h * w * len(taps) * len(tables)
-        bms, by = bound(sums * COST_SUM_OPS + h * w * len(taps) * COST_DR1_OPS
-                        + term_pixels(plan, taps, h, w, p1.device)
-                        * COST_TERM_OPS, F32_FLOPS,
-                        frame_bytes + len(cands) * h * w * 4)
-        one_pass_ms = bound(sums * COST_TAP_OPS, F32_FLOPS, 0)[0]
-        tbms, tby = bound(n_maps * hp * wp * COST_TERM_OPS, F32_FLOPS,
-                          frame_bytes + n_maps * hp * wp * 4)
+        bms, by = bound_ms(sums * COST_SUM_OPS
+                           + h * w * len(taps) * COST_DR1_OPS
+                           + term_pixels(plan, taps, h, w, p1.device)
+                           * COST_TERM_OPS,
+                           frame_bytes + len(cands) * h * w * 4)
+        one_pass_ms = bound_ms(sums * COST_TAP_OPS, 0)[0]
+        tbms, tby = bound_ms(n_maps * hp * wp * COST_TERM_OPS,
+                             frame_bytes + n_maps * hp * wp * 4)
         log(f"{label}: max|diff| {err:.3g} ({differ:.2%} differ)  kernel "
             f"{ms:.3f} ms (terms pass {tms:.3f} ms over {n_maps} maps + sums "
             f"{sums_ms:.3f} ms = {tms + sums_ms:.3f} ms)  plain {pms:.3f} ms"
@@ -776,8 +772,8 @@ def phase_kernels(dev) -> dict:
 
         lms = cuda_ms(products, 1 if big else 10)
         del a64, b64, panel
-        bms, by = bound(2.0 * n1 * n2 * d, F64_TENSOR_FLOPS,
-                        (n1 + n2) * d * 2 + n1 * 4)
+        bms, by = bound_ms(2.0 * n1 * n2 * d, (n1 + n2) * d * 2 + n1 * 4,
+                           dict(PEAKS, f32_flops=F64_TENSOR_FLOPS))
         plan = cuda_match.plan_global_argmax(n1, n2, sms,
                                              blocks_per_sm=geo.blocks_per_sm)
         tflops = 2.0 * n1 * n2 * d / (ms * 1e-3) / 1e12
@@ -850,9 +846,9 @@ def phase_kernels(dev) -> dict:
                                           for dx in range(-r, r + 1)]).sum())
         pairs = pair_count(known, r)
         # flow and output float2, the image 3 floats
-        bms, by = bound(pairs * SMOOTH_PAIR_OPS + taps * SMOOTH_TAP_OPS,
-                        F32_FLOPS, h * w * (8 + 12 + 8))
-        one_pass_ms = bound(taps * SMOOTH_ONE_PASS_OPS, F32_FLOPS, 0)[0]
+        bms, by = bound_ms(pairs * SMOOTH_PAIR_OPS + taps * SMOOTH_TAP_OPS,
+                           h * w * (8 + 12 + 8))
+        one_pass_ms = bound_ms(taps * SMOOTH_ONE_PASS_OPS, 0)[0]
         log(f"smooth {h}x{w} r={r} ({ran[0]}): max|diff| {err:.3g} "
             f"({differ:.2%} differ)  kernel {ms:.3f} ms  plain {pms:.3f} ms"
             f"  bound {bms:.3f} ms ({by}; {pairs} pairs, {taps:.0f} known "
@@ -885,9 +881,9 @@ def phase_kernels(dev) -> dict:
               "kernel C: the iterations one at a time differ")
         # three float planes in and out, the image 3 floats
         nbytes = h * w * (12 + 12 + 12)
-        bms, by = bound(work.ops, F32_FLOPS, nbytes)
-        all_ms = bound(work.ops_all_supports, F32_FLOPS, nbytes)[0]
-        every_ms = bound(work.ops_every_pixel, F32_FLOPS, nbytes)[0]
+        bms, by = bound_ms(work.ops, nbytes)
+        all_ms = bound_ms(work.ops_all_supports, nbytes)[0]
+        every_ms = bound_ms(work.ops_every_pixel, nbytes)[0]
         log(f"wmf {label} {h}x{w}: {'identical' if same else 'DIFFER'} "
             f"(max |diff| {err:.0f} px)  listed {work.share:.2%} of the "
             f"pixels ({', '.join(map(str, work.listed))} an iteration)  "
@@ -988,11 +984,7 @@ def kernel_e(rows: dict, dev, h: int, w: int, mode: str, cfg=None,
     call_ms = cuda_ms(call, 50)
     pms = cuda_ms(plain, 5)
     taps = len(cfg.cost.tap_offsets)
-    # packs read as float4, the candidates' targets and the incumbent in,
-    # the costs or the folded state out
-    nbytes = h * w * (2 * 16 + k * 8 + (24 if mode != "cost" else k * 4))
-    bms, by = bound(k * h * w * taps * len(tables) * PM_TAP_OPS, F32_FLOPS,
-                    nbytes)
+    bms, by = kernel_e_bound(k, h, w, taps, len(tables), mode)
     log(f"patchmatch {mode} {h}x{w} K={k} taps={taps} "
         f"tables={len(tables)} chunk={chunk}: "
         f"{'identical' if same else 'DIFFER'} (max |diff| {err:.3g}; "
@@ -1072,8 +1064,9 @@ def kernel_f(rows: dict, dev, h: int, w: int, call: str) -> None:
     taps = k * h * w * len(ecfg.tap_offsets)
     # packs read as float4, the offsets and the incumbent in, the state out
     nbytes = h * w * (2 * 16 + k * 8 + (24 if cur is not None else 4))
-    ops_ms, _ = bound(taps * EXACT_TAP_OPS, F32_FLOPS, nbytes)
-    bms, by = bound(taps * EXACT_TAP_CONVERSIONS, CONVERSIONS_PER_S, nbytes)
+    ops_ms, _ = bound_ms(taps * EXACT_TAP_OPS, nbytes)
+    bms, by = bound_ms(taps * EXACT_TAP_CONVERSIONS, nbytes,
+                       dict(PEAKS, f32_flops=CONVERSIONS_PER_S))
     by = "float64 conversions" if by == "operations" else by
     log(f"exact {call} {h}x{w} K={k} taps={len(ecfg.tap_offsets)}: "
         f"{'identical' if same else 'DIFFER'} (max |diff| {err:.3g}; "
@@ -1399,11 +1392,12 @@ def temporal_case(dev, h, w, dx, dy, seed, n=5) -> None:
 
 
 def stream_case(dev, h=480, w=640, dx=3, dy=-2, seed=SEED + 30,
-                n=5) -> None:
-    """``python -m eppm_tpu_torch.cli --frames-dir D --out-dir O
-    --temporal``, in process, on ``n`` PPM frames of a constant motion in
-    a temporary directory: one .flo per pair, named by its first frame,
-    each with the motion (interior EPE < 1); the fps line logged."""
+                n=5, temporal=True) -> None:
+    """``python -m eppm_tpu_torch.cli --frames-dir D --out-dir O``, with
+    ``--temporal`` where ``temporal``, in process, on ``n`` PPM frames of
+    a constant motion in a temporary directory: one .flo per pair, named
+    by its first frame, each with the motion (interior EPE < 1); the fps
+    line logged."""
     import contextlib
     import io as _io
     import os
@@ -1420,14 +1414,15 @@ def stream_case(dev, h=480, w=640, dx=3, dy=-2, seed=SEED + 30,
             write_ppm(os.path.join(frames, f"frame{k:03d}.ppm"), f)
         buf = _io.StringIO()
         with contextlib.redirect_stdout(buf):
-            rc = cli.main(["--frames-dir", frames, "--out-dir", out,
-                           "--temporal"])
+            rc = cli.main(["--frames-dir", frames, "--out-dir", out]
+                          + ["--temporal"] * temporal)
         report = json.loads(buf.getvalue().strip().splitlines()[-1])
         names = sorted(os.listdir(out))
         epes = [interior_epe(read_flo(os.path.join(out, name)), dx, dy, 16)
                 for name in names]
     log(f"stream CLI {w}x{h} shift ({dx},{dy}) [synthetic], {n} frames, "
-        f"--temporal: {report}; .flo {names}; interior EPE "
+        f"{'--temporal' if temporal else 'cold'}: {report}; .flo {names}; "
+        "interior EPE "
         + ", ".join(f"{e:.4f}" for e in epes))
     check(rc == 0 and report["pairs"] == n - 1, f"stream report {report}")
     check(names == [f"frame{k:03d}.flo" for k in range(n - 1)],
@@ -1822,9 +1817,11 @@ def phase_end_to_end(dev) -> dict:
     launches["temporal"] = drive("temporal", default, lambda: [
         temporal_case(dev, 1080, 1920, dx, dy, SEED + 31 + i)
         for i, (dx, dy) in enumerate([(5, 3), (-70, 44)])])
-    log("-- stream CLI: --frames-dir --out-dir --temporal")
-    launches["stream CLI"] = drive("stream CLI", default,
-                                   lambda: stream_case(dev))
+    log("-- stream CLI: --frames-dir --out-dir, cold and --temporal")
+    launches["stream CLI"] = drive("stream CLI", default, lambda: [
+        stream_case(dev, temporal=False),
+        stream_case(dev, 1080, 1920, 5, 3, SEED + 33, temporal=False),
+        stream_case(dev)])
 
     small, large = cases[0], cases[2]
     legacy = dataclasses.replace(cfg, refine=dataclasses.replace(
@@ -2214,6 +2211,7 @@ def phase_graphs(dev) -> None:
         ("patchmatch, a given key", small,
          dict(cfg=pm, key=prng_key(cfg.seed + 1, dev))),
         ("patchmatch, its default key", small, dict(cfg=pm)),
+        ("default 4K", pair(2160, 3840, 5, 3, SEED + 75), dict(cfg=cfg)),
         ("default 640x480", small, dict(cfg=cfg)),
         ("default 1080p", large, dict(cfg=cfg)),
     ]
@@ -2559,23 +2557,9 @@ def run_program(name: str, argv) -> list:
 
 
 def phase_programs(dev) -> None:
-    """The measurement programs on the card (phase 8 of the docstring)."""
-    log("== phase 8: the measurement programs (eppm_tpu_torch/bench)")
+    """The stage profilers on the card (phase 8 of the docstring)."""
+    log("== phase 8: the stage profilers (eppm_tpu_torch/bench)")
     torch.cuda.empty_cache()
-    (line,) = run_program("bench", [])
-    check("error" not in line and line["value"] > 0,
-          f"bench: {line.get('error')}")
-    check(line["warp_ratio"] < 0.5 and line["synthetic_epe"] < 1.0,
-          f"bench gates: warp ratio {line['warp_ratio']}, synthetic EPE "
-          f"{line['synthetic_epe']}")
-    check(line["hd1080p_replays"] >= 10, "bench: fewer than 10 1080p replays")
-
-    (table,) = run_program("bench_table", [])
-    rows = table["table"]
-    check(len(rows) == 4 and all(r["gate"] for r in rows.values()),
-          f"bench_table: {rows}")
-    check(table["graphs"]["evictions"] == 0, "bench_table evicted a graph")
-
     out = run_program("profile_stages", ["1080x1920"])
     summary = out[-1]
     check(summary["identical_to_untraced"] and summary["uncovered"] <= 0.01
@@ -2584,14 +2568,12 @@ def phase_programs(dev) -> None:
           f"profile_stages: {summary}")
 
     out = run_program("profile_match", ["1080x1920"])
-    check(out[-1]["rows"] == len(out) - 1 and out[-1]["rows"] >= 14,
+    exact = [r["stage"].split(" (")[0] for r in out[:-1]
+             if r["stage"].startswith("exact")]
+    check(out[-1]["rows"] == len(out) - 1 and out[-1]["rows"] >= 15,
           f"profile_match: {out[-1]}")
-
-    for size in ("480x640", "1080x1920"):
-        cold, warm, epe = run_program("stream_bench",
-                                      ["--frames", "8", "--size", size])
-        check(cold["value"] > 0 and warm["value"] > 0 and epe["value"] < 1.0,
-              f"stream_bench {size}: {cold}, {warm}, {epe}")
+    check(exact == [f"exact_best_of K={k}" for k in (1, 8, 4, 1)],
+          f"profile_match's exact rows: {exact}")
     torch.cuda.empty_cache()
 
 

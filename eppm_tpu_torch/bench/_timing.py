@@ -1,47 +1,32 @@
-"""What the measurement programs share: the device and its label, the
-flags every program takes, the timer of a stage, the timers of a whole
-pair, and the quality gates.
+"""What the stage profilers share: the device and its label, the flags
+every program takes, and the timer of a stage.
 
 * A stage is a span of a traced replay (``utils/trace.py``): the pair,
   or the chain of rows (``Rows``), is captured as one CUDA graph with
   tracing on, and ``traced_replays`` replays it between CUDA events and
   collects the spans the marks inside it stamped.
-* A whole pair goes through ``pipeline.compute_flow_jit``, the path
-  ``EPPMFlow`` and the command line run: ``device_ms`` takes CUDA events
-  around each call, ``e2e_ms`` the host clock around the call and the
-  flow's read back.  Each timed window runs inside ``window``, which
-  fails if ``graphs.GRAPHS`` captured or evicted a graph in it.
 * Every result is labelled with the card as ``nvidia-smi
   --query-gpu=name,power.limit`` prints it.  Without a card the programs
   exit non-zero; ``--device cpu`` runs the kernels' plain versions, and
-  then a program prints its gates and no time or rate.
+  then a program prints its stages and no time.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import statistics
 from typing import Callable, Dict, List, Optional, Sequence
 
-import numpy as np
 import torch
 
 from .. import graphs
 from ..eval_report import card_label
-from ..metrics import flow_error, warp_error
 from ..utils import trace
 
 __all__ = ["add_common", "device_of", "parse_size", "frames",
-           "window", "event_ms", "summary", "Row", "Rows", "traced_replays",
-           "warp_gate", "interior_epe", "card_label", "WARP_GATE",
-           "EPE_BORDER"]
-
-# bench.py's gates: the flow's warp error under half the zero-flow one,
-# the EPE over the pixels 16 px inside the frame
-WARP_GATE = 0.5
-EPE_BORDER = 16
+           "event_ms", "summary", "Row", "Rows", "traced_replays",
+           "card_label"]
 
 
 def add_common(p: argparse.ArgumentParser, sets: bool = False) -> None:
@@ -62,7 +47,7 @@ def device_of(name: str) -> torch.device:
     """The device of ``--device``: a CUDA device where there is none
     exits non-zero, naming it; nothing falls back to the CPU."""
     if name == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: the measurement programs time the "
+        raise SystemExit("no CUDA device: the stage profilers time the "
                          "card; pass --device cpu for an untimed run of the "
                          "plain versions")
     return torch.device(name)
@@ -80,22 +65,6 @@ def parse_size(text: str):
 def frames(pair, device: torch.device):
     """A pair of numpy frames as tensors on ``device``."""
     return [torch.from_numpy(f).to(device) for f in pair]
-
-
-@contextlib.contextmanager
-def window(what: str, captures: bool = True):
-    """A timed window: fails if ``graphs.GRAPHS`` evicted a graph in it,
-    or, with ``captures``, captured one (the warm-up before it should
-    have)."""
-    cache = graphs.GRAPHS
-    c0, e0 = cache.captures, cache.evictions
-    yield
-    if cache.evictions != e0:
-        raise RuntimeError(f"{what}: {cache.evictions - e0} CUDA graph(s) "
-                           "evicted inside a timed window")
-    if captures and cache.captures != c0:
-        raise RuntimeError(f"{what}: {cache.captures - c0} CUDA graph(s) "
-                           "captured inside a timed window")
 
 
 def event_ms(fn: Callable[[], object], reps: int) -> List[float]:
@@ -181,23 +150,3 @@ def traced_replays(entry: "graphs.FlowGraph", reps: int):
         raise RuntimeError(f"{len(spans)} graph spans of {reps} replays "
                            f"({tr.lost} lost)")
     return ms, spans, tr
-
-
-def warp_gate(f1: np.ndarray, f2: np.ndarray, flow: np.ndarray):
-    """(finite, warp error, zero-flow warp error, ok): the first of
-    bench.py's gates on uint8 frames and their flow."""
-    finite = bool(np.isfinite(flow).all())
-    a = f1.astype(np.float64) / 255.0
-    b = f2.astype(np.float64) / 255.0
-    we = warp_error(a, b, flow) if finite else float("nan")
-    we0 = warp_error(a, b, np.zeros_like(flow))
-    return finite, we, we0, finite and we < WARP_GATE * we0
-
-
-def interior_epe(flow: np.ndarray, dx: float, dy: float,
-                 border: int = EPE_BORDER) -> float:
-    """EPE of ``flow`` against the constant flow (dx, dy) over the pixels
-    ``border`` px inside the frame (``metrics.flow_error``)."""
-    gt = np.empty(flow.shape, np.float32)
-    gt[..., 0], gt[..., 1] = dx, dy
-    return flow_error(flow, gt, border=border)[0]

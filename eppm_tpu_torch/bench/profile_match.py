@@ -11,11 +11,15 @@ both frames; the tiny level's descriptors and ``global_match`` (kernel
 D) and its descent; each ``descend_level`` down the mini-pyramid; the
 coarse descriptors at the config's stride and their ``global_match``
 (kernel D); ``rescore`` of one field; ``propagate_dense`` (kernel A's
-multiwarp form); the final descent; and the exact stage's
-``make_patch_stack``, ``patch_cost_stack`` at K=1 and on the polish
-ring.  The tiny rows exist where the coarse level has mini levels below
-it.  The pair is ``testing.shifted_pair(h, w, 5, 3)``, 1080x1920 by
-default.
+multiwarp form); the final descent; and the exact stage's calls of
+``exact_best_of_auto`` (kernel F on the card, ``ops/cuda_exact.py``) as
+``_polish_direction`` makes them: the incumbent's score (K=1,
+unmasked), the polish ring (K=8, strict), each propagation step (K=4,
+strict) and each median round (K=1, at equality), each fed the state
+the last one returned.  As in ``_polish_direction``, the final descent
+starts from the propagated flow.  The tiny rows exist where the coarse level has
+mini levels below it.  The pair is ``testing.shifted_pair(h, w, 5,
+3)``, 1080x1920 by default.
 
 On the card the rows are captured as one CUDA graph with tracing on, each
 row a stage of its own (``_timing.Rows``), and the graph is replayed 5
@@ -36,9 +40,9 @@ import torch
 
 from ..config import DEFAULT_CONFIG, EPPMConfig
 from ..graphs import GRAPHS, capture
-from ..ops._util import grid
-from ..ops.cost import make_patch_stack, patch_cost_stack
-from ..ops.dense import center_out_offsets
+from ..ops._util import grid, shift2d
+from ..ops.cuda_exact import exact_best_of_auto
+from ..ops.dense import center_out_offsets, median3
 from ..ops.match import (_as_flow, _int_flow, _make_mini_cost, _mini_levels,
                          _mini_pyramid, descend_level, global_match,
                          match_coarse_bidi, patch_descriptors,
@@ -108,28 +112,43 @@ def match_stages(img1: torch.Tensor, img2: torch.Tensor, cfg: EPPMConfig,
         a, b, gy, gx, cfg.cost, chunk), p1, p2, zero, zero)
     gy, gx = _int_flow(flow)
     cost0 = rescore(p1, p2, gy, gx, cfg.cost, chunk)
-    run(f"propagate_dense {mcfg.prop_steps}",
-        lambda a, b, f, c: propagate_dense(a, b, f, c, mcfg.prop_steps,
-                                           cfg.cost, chunk),
-        p1, p2, flow, cost0)
-    run(f"final descend r={mcfg.final_radius}", lambda a, b, f: descend_level(
-        a, b, f, mcfg.final_radius, cfg.cost, chunk), p1, p2, flow)
+    flow, _ = run(f"propagate_dense {mcfg.prop_steps}",
+                  lambda a, b, f, c: propagate_dense(
+                      a, b, f, c, mcfg.prop_steps, cfg.cost, chunk),
+                  p1, p2, flow, cost0)
+    flow, _ = run(f"final descend r={mcfg.final_radius}",
+                  lambda a, b, f: descend_level(a, b, f, mcfg.final_radius,
+                                                cfg.cost, chunk), p1, p2, flow)
 
     exact_cfg = dataclasses.replace(cfg.cost,
                                     patch_stride=mcfg.exact_tap_stride)
-    offs2 = exact_cfg.tap_offsets
-    stack2 = run("exact: make_patch_stack", lambda b: make_patch_stack(
-        b, offs2, dtype=torch.bfloat16), p2)
-    ys, xs = grid(ch, cw, p1.device)
-    tx, ty = (xs + gx)[None], (ys + gy)[None]
-    run("exact: patch_cost_stack K=1", lambda a, st, x, y: patch_cost_stack(
-        a, st, x, y, exact_cfg, offs2), p1, stack2, tx, ty)
-    k = sum(1 for o in center_out_offsets(mcfg.exact_polish_radius)
-            if o != (0, 0))
-    run(f"exact: patch_cost_stack K={k} (ring)",
-        lambda a, st, x, y: patch_cost_stack(a, st, x, y, exact_cfg, offs2),
-        p1, stack2, tx.expand(k, ch, cw).contiguous(),
-        ty.expand(k, ch, cw).contiguous())
+
+    def best_of(strict):
+        return lambda a, b, cx, cy, cur: exact_best_of_auto(
+            a, b, cx, cy, cur, exact_cfg, strict)
+
+    gy, gx = _int_flow(flow)
+    state = run("exact_best_of K=1 (incumbent, unmasked)", best_of(True),
+                p1, p2, gx[None], gy[None], None)
+    gx, gy, _ = state
+    ring = [c for c in center_out_offsets(mcfg.exact_polish_radius)
+            if c != (0, 0)]
+    state = run(f"exact_best_of K={len(ring)} (ring, strict)", best_of(True),
+                p1, p2, torch.stack([gx + n for _, n in ring]),
+                torch.stack([gy + m for m, _ in ring]), state)
+    for step in mcfg.exact_prop_steps:
+        gx, gy, _ = state
+        shifts = ((0, -step), (0, step), (-step, 0), (step, 0))
+        state = run(f"exact_best_of K=4 (step {step}, strict)",
+                    best_of(True), p1, p2,
+                    torch.stack([shift2d(gx, a, b) for a, b in shifts]),
+                    torch.stack([shift2d(gy, a, b) for a, b in shifts]),
+                    state)
+    for _ in range(mcfg.exact_median_rounds):
+        gx, gy, _ = state
+        state = run("exact_best_of K=1 (median, at equality)",
+                    best_of(False), p1, p2, median3(gx)[None],
+                    median3(gy)[None], state)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
