@@ -32,8 +32,11 @@ final line is not printed):
    stage, ``csrc/exact.cu``) identical to ``match.exact_best_of`` at the
    1080p coarse level (135x240) in each of its calls: the incumbent's
    score (K = 1), the 8-ring, a step-2 propagation round (K = 4) and the
-   median round at equality (K = 1), its bound the float64 conversions
-   of its exps as well as its operations; with each one's time beside the plain
+   median round at equality (K = 1), and its occlusion arbitration
+   rule identical to ``occlusion.arbitrate_holes`` at the coarse levels
+   of 1080p and 640x480 (135x240, 120x160; K = 5, 49 taps), its bound the
+   float64 conversions of its exps as well as its operations; with each
+   one's time beside the plain
    version's (CUDA events, after a warm-up; kernel A's two passes also
    apart; kernel C's wrapper call is host-bound, so its time is device
    time, the call less the same call at ``num_iter=0``), its bound (the larger of its operations, counted from its
@@ -86,7 +89,8 @@ final line is not printed):
      ``EPPMFlow`` on its default key: (3, -2) and (37, 21) at
      640x480, (5, 3) at 1080p, kernel E launched 102 times a pair (an
      init and 10 x 5 rounds, both directions; 0 times on the default
-     path) and kernel F no time (8 times a pair on every dense path),
+     path) and kernel F once, its occlusion arbitration (9 times a pair
+     on every dense path: 8 in the exact stage),
      each pair's flow held by ``utils.guard.
      check_flow`` (finite, warp error below 0.6x the zero-flow one), its
      interior EPE, its time by ``utils.timing.DeviceTimer``, a second run
@@ -94,7 +98,7 @@ final line is not printed):
      ``torch.profiler``, the pair's (at 1080p also the PatchMatch
      stage's alone, drawing from the key and from a ``torch.Generator``:
      the device events the key's draws add); the dense matcher's kernels
-     (the multiwarp form of kernel A, kernel D, kernel F) launched no time;
+     (the multiwarp form of kernel A, kernel D) launched no time;
    - the command line on that engine: ``--gt`` with a KITTI 16-bit PNG
      ground truth, and ``--eval-dir`` over two 640x480 sequences (the
      scores of each);
@@ -150,7 +154,9 @@ final line is not printed):
    flow, with the warm-up, capture and
    instantiation seconds and the device memory allocated at most; then
    the median wall of 10 replays against the median of 5 eager calls at
-   640x480 and 1080p, default and PatchMatch, and one replay of each at
+   640x480 and 1080p, default and PatchMatch (one more replay each: kernel
+   F launched 9 times on the dense engine, once on PatchMatch, the fill-
+   first chain's arbitration), and one replay of each at
    1080p under ``torch.profiler`` (device events, device busy as a share
    of the replayed wall, each hand kernel's events against the launches
    the replay added); then ``compute_flow_sharded`` (one CUDA graph per
@@ -815,8 +821,11 @@ def phase_kernels(dev) -> dict:
                        (120, 160, "propagate")]:
         kernel_e(rows, dev, h, w, mode)
 
-    # kernel F at the coarse level of 1080p and 4K, each call of the exact
-    # stage; the row keeps the 8-ring's times, its largest call
+    # kernel F's occlusion arbitration at the coarse levels of 640x480,
+    # 1080p and 4K; then each call of the exact stage at 1080p's and 4K's;
+    # the row keeps the 8-ring's times, its largest call
+    for h, w in [(120, 160), (135, 240)]:
+        kernel_f_arbitrate(rows, dev, h, w)
     for call in ("score", "median", "propagate", "ring"):
         kernel_f(rows, dev, 135, 240, call)
 
@@ -1081,6 +1090,75 @@ def kernel_f(rows: dict, dev, h: int, w: int, call: str) -> None:
                library_ms=None, call_ms=call_ms, ops_bound_ms=ops_ms,
                ms_basis="device time (a spin kernel holds the stream while "
                "the host enqueues)")
+
+
+def kernel_f_arbitrate(rows: dict, dev, h: int, w: int) -> None:
+    """Kernel F's occlusion arbitration at one level (a synthetic pair
+    shifted by (3, -2)) against its plain version on the card
+    (``occlusion.arbitrate_holes``): the candidates as the fill-first
+    chain makes them (``fill_holes``' 4 directions and the pre-LR match,
+    K = 5, at the default 49 taps and threshold) over a fifth of the
+    pixels made holes and a block; identical, its device time and the
+    call's events time, the plain version's time and the two bounds of
+    ``kernel_f``.  The times go to the exact row's ``arbitrate`` entry,
+    keyed by the shape."""
+    from eppm_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from eppm_tpu_torch.config import INVALID_LOCATION
+    from eppm_tpu_torch.ops import cuda_exact as F
+    from eppm_tpu_torch.ops._util import grid
+    from eppm_tpu_torch.ops.occlusion import (arbitrate_holes,
+                                              arbitration_candidates)
+    from eppm_tpu_torch.ops.refine import fill_holes
+
+    (img, p1), (_, p2) = _packs(h, w, 3, -2, SEED + 8, dev)
+    gen = torch.Generator(dev).manual_seed(SEED + 8)
+    ys, xs = grid(h, w, dev)
+    otx = (xs + 3 + torch.randint(-1, 2, (h, w), generator=gen, device=dev,
+                                  dtype=torch.int32)).contiguous()
+    oty = (ys - 2 + torch.randint(-1, 2, (h, w), generator=gen, device=dev,
+                                  dtype=torch.int32)).contiguous()
+    holes = torch.rand((h, w), generator=gen, device=dev) < 0.2
+    holes[h // 3 : h // 2, w // 4 : w // 2] = True
+    tx = torch.where(holes, INVALID_LOCATION, otx)
+    ty = torch.where(holes, INVALID_LOCATION, oty)
+    ftx, fty, cands = fill_holes(tx, ty, img, return_candidates=True)
+    cgxs, cgys, masks = arbitration_candidates(tx, cands, (otx, oty))
+    thresh = cfg.refine.fill_photometric_thresh
+    args = (p1, p2, cgxs, cgys, masks, (tx, ty), (ftx, fty), cfg.cost,
+            thresh)
+
+    def kernel():
+        return F.arbitrate_holes_cuda(*args)
+
+    def plain():
+        return arbitrate_holes(*args)
+
+    got, ref = kernel(), plain()
+    same = all(torch.equal(a, b) for a, b in zip(got, ref))
+    took = float(((got[0] != ftx) | (got[1] != fty)).float().mean())
+    share = float(holes.float().mean())
+    ms = device_ms(kernel, 50)
+    call_ms = cuda_ms(kernel, 50)
+    pms = cuda_ms(plain, 3)
+    k = cgxs.shape[0]
+    taps = k * h * w * len(cfg.cost.tap_offsets)
+    # packs read as float4; offsets, flags, targets and fill in; targets out
+    nbytes = h * w * (2 * 16 + k * 9 + 24)
+    ops_ms, _ = bound_ms(taps * EXACT_TAP_OPS, nbytes)
+    bms, by = bound_ms(taps * EXACT_TAP_CONVERSIONS, nbytes,
+                       dict(PEAKS, f32_flops=CONVERSIONS_PER_S))
+    by = "float64 conversions" if by == "operations" else by
+    log(f"exact arbitrate {h}x{w} K={k} taps={len(cfg.cost.tap_offsets)}: "
+        f"{'identical' if same else 'DIFFER'} ({share:.2%} holes, "
+        f"{took:.2%} of the targets arbitrated off the fill)  kernel "
+        f"{ms:.4f} ms (device; the call by events {call_ms:.4f} ms)  plain "
+        f"{pms:.3f} ms  bound {bms:.4f} ms ({by}, {bms / ms:.1%} of it "
+        f"reached; float32 operations {ops_ms:.4f} ms, {ops_ms / ms:.1%})")
+    check(same, f"kernel F arbitrate {h}x{w}: differs from its plain version")
+    row = rows.setdefault("exact_best_of", {"max_abs_err": 0.0})
+    row.setdefault("arbitrate", {})[f"{h}x{w}"] = dict(
+        ms=ms, call_ms=call_ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+        ops_bound_ms=ops_ms)
 
 
 def interior(h: int, w: int, dx: int, dy: int, margin: int) -> np.ndarray:
@@ -1431,8 +1509,9 @@ def stream_case(dev, h=480, w=640, dx=3, dy=-2, seed=SEED + 30,
 
 
 PM_CFG = dict(match_engine="patchmatch")
-# the dense matcher's kernels: the PatchMatch engine bypasses them
-DENSE_MATCHER = ["residual_costs_multiwarp", "global_argmax", "exact_best_of"]
+# the dense matcher's kernels: the PatchMatch engine bypasses them (kernel
+# F it launches once a pair, in the occlusion arbitration alone)
+DENSE_MATCHER = ["residual_costs_multiwarp", "global_argmax"]
 
 
 def pm_case(model, dev, h, w, dx, dy, seed) -> None:
@@ -1469,6 +1548,8 @@ def pm_case(model, dev, h, w, dx, dy, seed) -> None:
     pcfg = model.cfg.patchmatch
     check(per_pair.get("patchmatch_costs", 0) == 2 * (1 + pcfg.num_iters * (
         len(pcfg.prop_steps) + 1)), f"kernel E launches per pair {per_pair}")
+    check(per_pair.get("exact_best_of", 0) == 1,
+          f"kernel F launches per pair {per_pair}: the arbitration alone")
     profile_pair(model, dev, h, w, dx, dy, seed)
     if h == 1080:
         profile_pm_stage(model.cfg, dev, h, w, dx, dy, seed)
@@ -1792,7 +1873,7 @@ def phase_end_to_end(dev) -> dict:
         model = EPPMFlow(pcfg)
         # one smoothing per fine level and one at the end: 3 per 640x480
         # pair (3 levels), 4 per 1080p pair (4 levels); kernel F 4 times a
-        # direction
+        # direction and once in the occlusion arbitration
         smooth = ("flow_smoothing" if path == "radius 6"
                   else "flow_smoothing_paired")
         holes = []
@@ -1800,7 +1881,7 @@ def phase_end_to_end(dev) -> dict:
             holes, lambda: [
                 flow_case(model, dev, *case,
                           expect={smooth: 3 if case[0] == 480 else 4,
-                                  "exact_best_of": 8})
+                                  "exact_best_of": 9})
                 for case in pcases]))
         log(f"kernel C's polish calls on the {path} path: "
             + ", ".join(f"{h}x{w} {share:.2%}" for h, w, share in holes)
@@ -1880,7 +1961,8 @@ def phase_end_to_end(dev) -> dict:
     check(launches["default"]["patchmatch_costs"] == 0,
           "kernel E launched on the default path")
     pm_kernels = ["cost_terms", "residual_costs", "flow_smoothing_paired",
-                  "weighted_median_filter", "patchmatch_costs"]
+                  "weighted_median_filter", "patchmatch_costs",
+                  "exact_best_of"]
     model = EPPMFlow(dataclasses.replace(cfg, **PM_CFG))
     for path, run in (
             ("patchmatch", lambda: [pm_case(model, dev, *case)
@@ -2064,7 +2146,8 @@ DOSSIER_KERNELS = {
               "flow_smoothing_paired", "weighted_median_filter",
               "exact_best_of"],
     "patchmatch": ["cost_terms", "residual_costs", "flow_smoothing_paired",
-                   "weighted_median_filter", "patchmatch_costs"],
+                   "weighted_median_filter", "patchmatch_costs",
+                   "exact_best_of"],
 }
 
 
@@ -2253,10 +2336,19 @@ def phase_graphs(dev) -> None:
         replay = [wall_ms(lambda: compute_flow_jit(img1, img2, cfg=pcfg))
                   for _ in range(10)]
         e_ms, r_ms = statistics.median(eager), statistics.median(replay)
+        # kernel F a replay: the exact stage's 8 and the arbitration's 1
+        # on the dense engine, the arbitration alone on PatchMatch
+        exact = counters()["exact_best_of"]
+        before = exact.launches
+        compute_flow_jit(img1, img2, cfg=pcfg)
+        n_exact = exact.launches - before
         log(f"wall {label} [synthetic] ({name}): replay median {r_ms:.3f} ms "
             f"(10: {min(replay):.3f}-{max(replay):.3f}) against eager median "
             f"{e_ms:.3f} ms (5: {min(eager):.3f}-{max(eager):.3f}), "
-            f"{e_ms / r_ms:.2f}x; replays identical to the eager flow")
+            f"{e_ms / r_ms:.2f}x; replays identical to the eager flow; "
+            f"kernel F {n_exact} launches a replay")
+        check(n_exact == (9 if pcfg is cfg else 1),
+              f"{label}: kernel F {n_exact} launches a replay")
         if img1.shape[0] != 1080:
             continue
         entry = GRAPHS.entries[graph_key(img1, img2, pcfg, False, None, None)]
@@ -2641,8 +2733,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("call_ms", "ops_bound_ms", "ms_basis")
-               if k in r},
+            **{k: r[k] for k in ("call_ms", "ops_bound_ms", "ms_basis",
+                                 "arbitrate") if k in r},
         })
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

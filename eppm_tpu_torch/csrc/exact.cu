@@ -28,6 +28,16 @@
 //   * score: K = 1, the cost alone and unmasked (the incumbent's scoring);
 //   * strict: the polish ring and the propagation rounds;
 //   * at equality: the median rounds.
+// A fourth rule is the coarse occlusion chain's photometric arbitration
+// (eppm_tpu_torch/ops/occlusion.py::arbitrate_holes over patch_cost_stack's
+// float32 stack): frame 2 read in float32 (no bf16 rounding), the cost not
+// quantized, a candidate masked by its own flag as well as by frame 2, and
+// the first least cost accepted where the pixel is a hole (either LR-checked
+// target < 0) and the cost is below a threshold: the candidate's target,
+// else the fill's.  Those departures are compile-time: the kernel is a
+// template on its argument struct, ExArgs for the matcher's three rules
+// (the code they compiled to before the arbitration existed) and ArbArgs
+// for the arbitration, so no rule is tested inside the tap loop.
 // The fold writes fresh buffers: no pixel writes what another reads.
 //
 // What bounds it on the H100: the two exps a (candidate, pixel, tap).
@@ -46,6 +56,7 @@
 // a pixel then walks the K costs in candidate order.
 
 #include <cfloat>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -64,6 +75,7 @@
 #define EX_SCORE 0           // no incumbent: K = 1, the cost unmasked
 #define EX_STRICT 1          // accepted on a strictly lower cost
 #define EX_AT_EQUALITY 2     // accepted on an equal or lower cost
+#define EX_ARBITRATE 3       // the occlusion arbitration (ArbArgs)
 
 struct ExArgs {
     const float4* pack1;     // (H, W) frame 1
@@ -83,6 +95,15 @@ struct ExArgs {
     float inv_sig_r2, inv_lam_ad2;
 };
 
+// The arbitration's arguments: in_gx, in_gy are the fill's absolute targets
+// and out_gx, out_gy the arbitrated ones; in_cost and out_cost are unused.
+struct ArbArgs : ExArgs {
+    const unsigned char* found;  // (K, H, W) each candidate's own flag
+    const int* hole_tx;          // (H, W) the LR-checked targets: a hole
+    const int* hole_ty;          //   where either is < 0
+    float thresh;                // the accept's bound, strict '<'
+};
+
 // float32 -> bfloat16 -> float32, rounding to nearest even as torch's
 // float -> bfloat16 conversion does (c10::BFloat16, NaN to 0x7fc0).
 __device__ __forceinline__ float bf16_round(float v)
@@ -98,15 +119,26 @@ __device__ __forceinline__ float4 bf16_round(float4 v)
                        bf16_round(v.w));
 }
 
+// A frame-2 pixel as the rule reads it: the matcher's bfloat16 tap stack,
+// or the arbitration's float32 one.
+template <bool ROUND>
+__device__ __forceinline__ float4 read2(const float4* p)
+{
+    if constexpr (ROUND) return bf16_round(__ldg(p));
+    return __ldg(p);
+}
+
 // int32 addition that wraps as torch's does (no signed overflow).
 __device__ __forceinline__ int add_wrap(int a, int b)
 {
     return (int)((unsigned)a + (unsigned)b);
 }
 
+template <class Args>
 __global__ void __launch_bounds__(EX_PIX * EX_MAX_KZ)
-exact_kernel(const ExArgs a)
+exact_kernel(const Args a)
 {
+    constexpr bool ARB = std::is_same<Args, ArbArgs>::value;
     extern __shared__ float4 ex_smem[];
     const int TW = EX_BX + 2 * a.R, TH = EX_BY + 2 * a.R;
     float4* tile = ex_smem;
@@ -141,15 +173,14 @@ exact_kernel(const ExArgs a)
             const size_t i = ((size_t)k * a.H + y) * a.W + x;
             const int tx = add_wrap(x, a.cgx[i]), ty = add_wrap(y, a.cgy[i]);
             const int cx = clampi(tx, a.W2), cy = clampi(ty, a.H2);
-            const float4 c2 =
-                bf16_round(__ldg(a.pack2 + (size_t)cy * a.W2 + cx));
+            const float4 c2 = read2<!ARB>(a.pack2 + (size_t)cy * a.W2 + cx);
             float cost_sum = 0.f, weight_sum = 0.f;
             for (int t = 0; t < a.T; ++t) {
                 const int dy = offs[2 * t], dx = offs[2 * t + 1];
                 const float4 p1 = tile[u + dy * TW + dx];
-                const float4 p2 = bf16_round(__ldg(
+                const float4 p2 = read2<!ARB>(
                     a.pack2 + (size_t)clampi(cy + dy, a.H2) * a.W2
-                    + clampi(cx + dx, a.W2)));
+                    + clampi(cx + dx, a.W2));
                 const float dr1 = maxabs3(c1, p1);
                 const float dr2 = maxabs3(c2, p2);
                 const float wgt = ftz(
@@ -164,17 +195,26 @@ exact_kernel(const ExArgs a)
                 cost_sum = fma32(wgt, term, cost_sum);
                 weight_sum = weight_sum + wgt;
             }
-            float cost = rintf(cost_sum / fmaxf(weight_sum, EPPM_TINY)
-                               * EX_GRID) * (1.f / EX_GRID);
-            if (a.rule == EX_SCORE) {
-                a.out_cost[i] = cost;   // K = 1: i is the pixel's index
-                continue;
+            float cost;
+            if constexpr (ARB) {
+                cost = cost_sum / fmaxf(weight_sum, EPPM_TINY);
+            } else {
+                cost = rintf(cost_sum / fmaxf(weight_sum, EPPM_TINY)
+                             * EX_GRID) * (1.f / EX_GRID);
+                if (a.rule == EX_SCORE) {
+                    a.out_cost[i] = cost;   // K = 1: i is the pixel's index
+                    continue;
+                }
             }
-            if (tx < 0 || tx >= a.W2 || ty < 0 || ty >= a.H2) cost = FLT_MAX;
+            bool masked = tx < 0 || tx >= a.W2 || ty < 0 || ty >= a.H2;
+            if constexpr (ARB) masked = masked || !a.found[i];
+            if (masked) cost = FLT_MAX;
             costs[k * EX_PIX + pix] = cost;
         }
     }
-    if (a.rule == EX_SCORE) return;
+    if constexpr (!ARB) {
+        if (a.rule == EX_SCORE) return;
+    }
     __syncthreads();
     if (threadIdx.z != 0 || !inside) return;
     // the first least cost, then the accept
@@ -188,38 +228,69 @@ exact_kernel(const ExArgs a)
         }
     }
     const size_t i = (size_t)y * a.W + x;
-    const float cost0 = a.in_cost[i];
-    const bool win = a.rule == EX_STRICT ? best < cost0 : best <= cost0;
     const size_t j = ((size_t)best_k * a.H + y) * a.W + x;
-    a.out_gx[i] = win ? a.cgx[j] : a.in_gx[i];
-    a.out_gy[i] = win ? a.cgy[j] : a.in_gy[i];
-    a.out_cost[i] = win ? best : cost0;
+    if constexpr (ARB) {
+        // a hole takes the candidate's target below the threshold
+        const bool win =
+            (a.hole_tx[i] < 0 || a.hole_ty[i] < 0) && best < a.thresh;
+        a.out_gx[i] = win ? add_wrap(x, a.cgx[j]) : a.in_gx[i];
+        a.out_gy[i] = win ? add_wrap(y, a.cgy[j]) : a.in_gy[i];
+    } else {
+        const float cost0 = a.in_cost[i];
+        const bool win = a.rule == EX_STRICT ? best < cost0 : best <= cost0;
+        a.out_gx[i] = win ? a.cgx[j] : a.in_gx[i];
+        a.out_gy[i] = win ? a.cgy[j] : a.in_gy[i];
+        a.out_cost[i] = win ? best : cost0;
+    }
+}
+
+template <class Args>
+static int launch(const Args& a, size_t smem, cudaStream_t stream)
+{
+    if (smem > EX_SMEM_DEFAULT) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            exact_kernel<Args>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    const dim3 block(EX_BX, EX_BY, a.K < EX_MAX_KZ ? a.K : EX_MAX_KZ);
+    const dim3 grid((a.W + EX_BX - 1) / EX_BX, (a.H + EX_BY - 1) / EX_BY);
+    exact_kernel<Args><<<grid, block, smem, stream>>>(a);
+    return (int)cudaGetLastError();
 }
 
 // pack1 (H, W) and pack2 (H2, W2) float4; cgx, cgy (K, H, W) int32
 // candidate offsets; in_gx, in_gy, in_cost (H, W) and out_gx, out_gy (H, W)
 // for the strict and at-equality rules, null for the score (K = 1);
 // out_cost (H, W); offs int32 (T, 2) taps, gws (T,) float32, lut (256,)
-// float32; all on the device.  Returns cudaGetLastError() after the
-// launch.
+// float32; all on the device.  The arbitration takes the fill's targets as
+// in_gx, in_gy, writes out_gx, out_gy and no cost (in_cost, out_cost null),
+// and takes found (K, H, W) bool, hole_tx, hole_ty (H, W) int32 and thresh,
+// which the other rules leave null and 0.  Returns cudaGetLastError() after
+// the launch.
 extern "C" int eppm_exact_best_of(
     const void* pack1, const void* pack2, const void* cgx, const void* cgy,
     const void* in_gx, const void* in_gy, const void* in_cost, void* out_gx,
     void* out_gy, void* out_cost, const void* offs, const void* gws,
-    const void* lut, int H, int W, int H2, int W2, int K, int T, int R,
-    int rule, float inv_sig_r2, float inv_lam_ad2, void* stream)
+    const void* lut, const void* found, const void* hole_tx,
+    const void* hole_ty, int H, int W, int H2, int W2, int K, int T, int R,
+    int rule, float inv_sig_r2, float inv_lam_ad2, float thresh,
+    void* stream)
 {
-    const bool score = rule == EX_SCORE;
+    const bool score = rule == EX_SCORE, arb = rule == EX_ARBITRATE;
     if (H < 1 || W < 1 || H2 < 1 || W2 < 1 || K < 1 || K > EX_MAX_CANDS
         || T < 1 || T > EX_MAX_TAPS || R < 0 || R > EX_MAX_REACH
-        || rule < EX_SCORE || rule > EX_AT_EQUALITY
-        || cgx == nullptr || cgy == nullptr || out_cost == nullptr
+        || rule < EX_SCORE || rule > EX_ARBITRATE
+        || cgx == nullptr || cgy == nullptr
+        || (!arb && out_cost == nullptr)
         || (score && K != 1)
         || (!score && (in_gx == nullptr || in_gy == nullptr ||
-                       in_cost == nullptr || out_gx == nullptr ||
-                       out_gy == nullptr)))
+                       out_gx == nullptr || out_gy == nullptr))
+        || (!score && !arb && in_cost == nullptr)
+        || (arb && (found == nullptr || hole_tx == nullptr ||
+                    hole_ty == nullptr)))
         return (int)cudaErrorInvalidValue;
-    ExArgs a;
+    ArbArgs a;
     a.pack1 = (const float4*)pack1;
     a.pack2 = (const float4*)pack2;
     a.cgx = (const int*)cgx;
@@ -237,18 +308,14 @@ extern "C" int eppm_exact_best_of(
     a.rule = rule;
     a.inv_sig_r2 = inv_sig_r2;
     a.inv_lam_ad2 = inv_lam_ad2;
+    a.found = (const unsigned char*)found;
+    a.hole_tx = (const int*)hole_tx;
+    a.hole_ty = (const int*)hole_ty;
+    a.thresh = thresh;
     const size_t smem =
         (size_t)(EX_BX + 2 * R) * (EX_BY + 2 * R) * sizeof(float4) +
         (EX_LUT + T) * sizeof(float) + 2 * T * sizeof(int) +
         (score ? 0 : (size_t)K * EX_PIX * sizeof(float));
-    if (smem > EX_SMEM_DEFAULT) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            exact_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
-        if (err != cudaSuccess) return (int)err;
-    }
-    const dim3 block(EX_BX, EX_BY, K < EX_MAX_KZ ? K : EX_MAX_KZ);
-    const dim3 grid((W + EX_BX - 1) / EX_BX, (H + EX_BY - 1) / EX_BY);
-    exact_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(a);
-    return (int)cudaGetLastError();
+    if (arb) return launch<ArbArgs>(a, smem, (cudaStream_t)stream);
+    return launch<ExArgs>(a, smem, (cudaStream_t)stream);
 }

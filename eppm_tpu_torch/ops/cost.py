@@ -25,8 +25,10 @@ The gathered costs (the exact stage, the plane-fitting re-search of
 targets; they are not Pallas kernels in the JAX package.  The exact
 stage's (``patch_cost_stack`` on the bfloat16 stack, quantized, and its
 argmin and accept) has a CUDA kernel, kernel F (``ops/cuda_exact.py``,
-plain version ``ops/match.py::exact_best_of``); the photometric
-arbitration's ``patch_cost_stack`` stays plain torch.
+plain version ``ops/match.py::exact_best_of``); so has the photometric
+arbitration's (``patch_cost_stack`` on the float32 stack, unquantized,
+with its argmin and accept): kernel F's arbitration rule, plain version
+``ops/occlusion.py::arbitrate_holes``.
 ``patch_cost_offsets`` over any tap tables has a CUDA kernel, kernel E
 (``ops/cuda_patchmatch.py``), which ``patch_cost``,
 ``patch_cost_candidates`` and ``patch_cost_planefitting`` take for CUDA

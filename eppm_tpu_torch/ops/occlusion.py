@@ -5,7 +5,8 @@ kernel and this module the chain that calls it).
 
 Default order (``RefineConfig.wmf_fill_first``): fill the LR-invalidated
 holes from the 4 scan directions, let frame-2 evidence re-decide holes
-that are visible there (photometric arbitration), a second fill pass for
+that are visible there (photometric arbitration: kernel F's arbitration
+rule on the card, ``ops/cuda_exact.py``), a second fill pass for
 the corners no direction reaches, one frozen-valid WMF polish per
 dilation (kernel C), then 3x3 median majority rounds over the holes.
 The legacy order (``wmf_fill_first=False``, the reference's schedule,
@@ -27,47 +28,62 @@ from .cuda_wmf import weighted_median_filter_auto
 from .dense import median3
 from .refine import fill_holes
 
-__all__ = ["wmf_polish_occlusions", "coarse_occlusion_reconstruct"]
+__all__ = ["arbitration_candidates", "arbitrate_holes",
+           "wmf_polish_occlusions", "coarse_occlusion_reconstruct"]
 
 
-def _photometric_arbitrate(
-    tx, ty, ftx, fty, cands, packs, cost_cfg, thresh: float, orig,
-):
-    """Re-decide each hole's fill by the exact patch cost where the scene
-    is visible in frame 2 (``eppm_tpu/ops/pallas_wmf.py::
-    _photometric_arbitrate``).  Candidates: the 4 directional fill sources
-    (offsets ROUNDED here, where the fill truncates) and the pixel's own
-    pre-LR match, admitted only where a directional source agrees with it
-    within 2 px.  A hole adopts the cheapest candidate when its cost is
-    below ``thresh``."""
-    p1, p2 = packs
+def arbitration_candidates(tx, cands, orig):
+    """The arbitration's candidate fields as offsets from the pixel
+    (``eppm_tpu/ops/pallas_wmf.py::_photometric_arbitrate``): the 4
+    directional fill sources (offsets ROUNDED here, where the fill
+    truncates), each flagged by its direction's ``found``, and the pixel's
+    own pre-LR match ``orig``, flagged where a directional source agrees
+    with it within 2 px -> (gx, gy) int32 and flags bool, (K, H, W) each,
+    K = 5 (4 without ``orig``)."""
     h, w = tx.shape
-    h2, w2 = p2.shape[0], p2.shape[1]
     ys, xs = grid(h, w, tx.device)
-
     fields = []
     for found, gox, goy in cands:
-        ctx = xs + torch.round(gox).to(torch.int32)
-        cty = ys + torch.round(goy).to(torch.int32)
-        fields.append((found, ctx, cty))
+        gx = torch.round(gox).to(torch.int32)
+        gy = torch.round(goy).to(torch.int32)
+        fields.append((found, gx, gy, xs + gx, ys + gy))
     if orig is not None:
         otx, oty = orig
         agree = torch.zeros((h, w), dtype=torch.bool, device=tx.device)
-        for found, ctx, cty in fields:
+        for found, _, _, ctx, cty in fields:
             d = torch.maximum((ctx - otx).abs(), (cty - oty).abs())
             agree = agree | (found & (d <= 2))
-        fields.append((agree, otx, oty))
+        # x + (otx - x) wraps back to otx in int32
+        fields.append((agree, otx - xs, oty - ys, otx, oty))
+    return (torch.stack([f[1] for f in fields]),
+            torch.stack([f[2] for f in fields]),
+            torch.stack([f[0] for f in fields]))
 
-    txs = torch.stack([f[1] for f in fields])
-    tys = torch.stack([f[2] for f in fields])
+
+def arbitrate_holes(pack1, pack2, cgxs, cgys, masks, cur, fill, cost_cfg,
+                    thresh: float):
+    """Re-decide each hole's fill by the exact patch cost where the scene
+    is visible in frame 2: the K candidate offset fields ``cgxs``,
+    ``cgys`` (K, H, W) int32 scored by ``patch_cost_stack`` on frame 2's
+    float32 tap stack (unquantized), each masked to FLT_MAX unless its
+    flag in ``masks`` is set and its target lies in frame 2; a hole of the
+    LR-checked targets ``cur`` = (tx, ty) adopts the first least
+    candidate's target when that cost is below ``thresh``, every other
+    pixel keeps the fill ``fill`` = (ftx, fty).  The plain version of
+    kernel F's arbitration rule (``ops/cuda_exact.py``), which
+    ``arbitrate_holes_auto`` takes for CPU tensors."""
+    tx, ty = cur
+    ftx, fty = fill
+    h, w = tx.shape
+    h2, w2 = pack2.shape[0], pack2.shape[1]
+    ys, xs = grid(h, w, tx.device)
+    txs = xs[None] + cgxs
+    tys = ys[None] + cgys
     offs = cost_cfg.tap_offsets
-    stack2 = make_patch_stack(p2, offs)
-    costs = patch_cost_stack(p1, stack2, txs, tys, cost_cfg, offs)
-    masked = []
-    for k, (found, ctx, cty) in enumerate(fields):
-        inb = (ctx >= 0) & (ctx < w2) & (cty >= 0) & (cty < h2)
-        masked.append(torch.where(found & inb, costs[k], FLT_MAX))
-    costs = torch.stack(masked)
+    stack2 = make_patch_stack(pack2, offs)
+    costs = patch_cost_stack(pack1, stack2, txs, tys, cost_cfg, offs)
+    inb = (txs >= 0) & (txs < w2) & (tys >= 0) & (tys < h2)
+    costs = torch.where(masks & inb, costs, FLT_MAX)
     cmin = costs.min(dim=0).values
     kbest = torch.argmin(costs, dim=0)  # first minimum
     btx = torch.gather(txs, 0, kbest[None])[0]
@@ -76,6 +92,20 @@ def _photometric_arbitrate(
     hole = (tx < 0) | (ty < 0)
     use = hole & (cmin < thresh)
     return torch.where(use, btx, ftx), torch.where(use, bty, fty)
+
+
+def _photometric_arbitrate(
+    tx, ty, ftx, fty, cands, packs, cost_cfg, thresh: float, orig,
+):
+    """The photometric arbitration of the fill
+    (``eppm_tpu/ops/pallas_wmf.py::_photometric_arbitrate``): the candidate
+    fields in plain torch, then one launch of kernel F's arbitration rule
+    on the card (``arbitrate_holes`` on the CPU)."""
+    from .cuda_exact import arbitrate_holes_auto
+
+    cgxs, cgys, masks = arbitration_candidates(tx, cands, orig)
+    return arbitrate_holes_auto(packs[0], packs[1], cgxs, cgys, masks,
+                                (tx, ty), (ftx, fty), cost_cfg, thresh)
 
 
 def wmf_polish_occlusions(

@@ -183,6 +183,126 @@ def _exact_case(k, h, w, h2, w2, seed, device="cpu"):
     return p1, p2, (gx0, gy0, cost0), cgx, cgy
 
 
+def _old_photometric_arbitrate(
+    tx, ty, ftx, fty, cands, packs, cost_cfg, thresh: float, orig,
+):
+    """``ops/occlusion.py::_photometric_arbitrate`` as it was before kernel
+    F's arbitration rule, verbatim: the oracle of ``arbitrate_holes``."""
+    p1, p2 = packs
+    h, w = tx.shape
+    h2, w2 = p2.shape[0], p2.shape[1]
+    ys, xs = grid(h, w, tx.device)
+
+    fields = []
+    for found, gox, goy in cands:
+        ctx = xs + torch.round(gox).to(torch.int32)
+        cty = ys + torch.round(goy).to(torch.int32)
+        fields.append((found, ctx, cty))
+    if orig is not None:
+        otx, oty = orig
+        agree = torch.zeros((h, w), dtype=torch.bool, device=tx.device)
+        for found, ctx, cty in fields:
+            d = torch.maximum((ctx - otx).abs(), (cty - oty).abs())
+            agree = agree | (found & (d <= 2))
+        fields.append((agree, otx, oty))
+
+    txs = torch.stack([f[1] for f in fields])
+    tys = torch.stack([f[2] for f in fields])
+    offs = cost_cfg.tap_offsets
+    stack2 = make_patch_stack(p2, offs)
+    costs = patch_cost_stack(p1, stack2, txs, tys, cost_cfg, offs)
+    masked = []
+    for k, (found, ctx, cty) in enumerate(fields):
+        inb = (ctx >= 0) & (ctx < w2) & (cty >= 0) & (cty < h2)
+        masked.append(torch.where(found & inb, costs[k], FLT_MAX))
+    costs = torch.stack(masked)
+    cmin = costs.min(dim=0).values
+    kbest = torch.argmin(costs, dim=0)  # first minimum
+    btx = torch.gather(txs, 0, kbest[None])[0]
+    bty = torch.gather(tys, 0, kbest[None])[0]
+
+    hole = (tx < 0) | (ty < 0)
+    use = hole & (cmin < thresh)
+    return torch.where(use, btx, ftx), torch.where(use, bty, fty)
+
+
+# the arbitration's cases: K = 5 (the 4 directions and the pre-LR match),
+# K = 4 (no pre-LR match), an all-hole field, and a threshold equal to a
+# hole's least cost
+ARB_CASES = ["K=5", "K=4", "all holes", "cost at the threshold"]
+
+
+def _arbitration_costs(p1, p2, cgxs, cgys, masks, cost_cfg):
+    """The arbitration's masked costs (K, H, W), as the oracle makes
+    them."""
+    h, w = cgxs.shape[1:]
+    ys, xs = grid(h, w, p1.device)
+    txs, tys = xs[None] + cgxs, ys[None] + cgys
+    offs = cost_cfg.tap_offsets
+    costs = patch_cost_stack(p1, make_patch_stack(p2, offs), txs, tys,
+                             cost_cfg, offs)
+    inb = (txs >= 0) & (txs < p2.shape[1]) & (tys >= 0) & (tys < p2.shape[0])
+    return torch.where(masks & inb, costs, FLT_MAX)
+
+
+def _arbitration_case(case, h, w, seed, device="cpu"):
+    """The photometric arbitration's inputs at one level: frame 2 frame 1
+    shifted by (-2, 1) and darkened; pre-LR matches near that shift; holes
+    (a fifth of the pixels and a block; every pixel for "all holes"); the
+    fill and its 4 directional candidates from ``fill_holes``, then
+    direction 0 not found on a third of the pixels, direction 1's offsets
+    pushed past frame 2's left edge on every fourth row and direction 2's
+    moved by half a pixel (ties that rounding to even decides).  Returns
+    the arguments of ``_photometric_arbitrate`` and the threshold: the
+    default, or for "cost at the threshold" the least cost of the hole
+    whose least cost is the median of the holes' finite ones (the pixel
+    keeps the fill), and that pixel."""
+    rng = np.random.default_rng(seed)
+    img1 = rng.random((h, w, 3)).astype(np.float32)
+    img2 = np.roll(img1, (1, -2), (0, 1)) * np.float32(0.9)
+    p1, p2 = (pack_frame(t, census_transform(t)).contiguous()
+              for t in (torch.from_numpy(img1), torch.from_numpy(img2)))
+    ys, xs = np.mgrid[0:h, 0:w]
+    otx = (xs - 2 + rng.integers(-1, 2, (h, w))).astype(np.int32)
+    oty = (ys + 1 + rng.integers(-1, 2, (h, w))).astype(np.int32)
+    holes = rng.random((h, w)) < 0.2
+    holes[h // 3 : h // 2, w // 4 : w // 2] = True
+    if case == "all holes":
+        holes[:] = True
+    tx = torch.from_numpy(np.where(holes, INVALID_LOCATION, otx)
+                          .astype(np.int32))
+    ty = torch.from_numpy(np.where(holes, INVALID_LOCATION, oty)
+                          .astype(np.int32))
+    img = torch.from_numpy(img1)
+    ftx, fty, cands = fill_holes(tx, ty, img, return_candidates=True)
+    lost = torch.from_numpy(rng.random((h, w)) < 0.33)
+    cands[0] = (cands[0][0] & ~lost, cands[0][1], cands[0][2])
+    left = torch.zeros((h, w), dtype=torch.bool)
+    left[::4] = True
+    cands[1] = (cands[1][0], torch.where(left, cands[1][1] - w, cands[1][1]),
+                cands[1][2])
+    cands[2] = (cands[2][0], cands[2][1] + 0.5, cands[2][2] - 0.5)
+    orig = (torch.from_numpy(otx), torch.from_numpy(oty))
+    if case == "K=4":
+        orig = None
+    thresh, at = CFG.refine.fill_photometric_thresh, None
+    if case == "cost at the threshold":
+        cgxs, cgys, masks = occlusion.arbitration_candidates(tx, cands, orig)
+        cmin = _arbitration_costs(p1, p2, cgxs, cgys, masks,
+                                  CFG.cost).min(dim=0).values
+        finite = torch.from_numpy(holes) & (cmin < FLT_MAX)
+        vals = cmin[finite].sort().values
+        mid = vals[len(vals) // 2]
+        at = tuple(int(v) for v in ((cmin == mid) & finite).nonzero()[0])
+        thresh = float(mid)
+    dev = torch.device(device)
+    args = (tx.to(dev), ty.to(dev), ftx.to(dev), fty.to(dev),
+            [tuple(t.to(dev) for t in c) for c in cands],
+            (p1.to(dev), p2.to(dev)), CFG.cost, thresh,
+            None if orig is None else tuple(t.to(dev) for t in orig))
+    return args, at
+
+
 # --- anywhere -------------------------------------------------------------
 
 
@@ -220,6 +340,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                               None, EXACT_CFG),
         lambda: cuda_exact.exact_best_of_cuda(p1, p2, tx[None], ty[None],
                                               (tx, ty, cost), EXACT_CFG),
+        lambda: cuda_exact.arbitrate_holes_cuda(
+            p1, p2, tx[None], ty[None], (tx >= 0)[None], (tx, ty), (tx, ty),
+            CFG.cost, 0.6),
     ]
     before = _counts()
     for call in calls:
@@ -262,6 +385,12 @@ def test_dispatchers_take_plain_versions_on_cpu_only():
                                             strict)
         want = match.exact_best_of(p1, p2, txs, tys, cur, EXACT_CFG, strict)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
+    fill = (tx.abs(), ty.abs())
+    got = cuda_exact.arbitrate_holes_auto(p1, p2, txs, tys, txs >= 0,
+                                          (tx, ty), fill, CFG.cost, 0.6)
+    want = occlusion.arbitrate_holes(p1, p2, txs, tys, txs >= 0, (tx, ty),
+                                     fill, CFG.cost, 0.6)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert _counts() == before
     meta = torch.empty((8, 12, 4), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -277,6 +406,10 @@ def test_dispatchers_take_plain_versions_on_cpu_only():
     with pytest.raises(ValueError, match="unsupported device"):
         cuda_exact.exact_best_of_auto(meta, meta, tx[None], ty[None], None,
                                       EXACT_CFG)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_exact.arbitrate_holes_auto(meta, meta, tx[None], ty[None],
+                                        (tx >= 0)[None], (tx, ty), (tx, ty),
+                                        CFG.cost, 0.6)
 
 
 @pytest.mark.parametrize("k,rule", EXACT_RULES)
@@ -310,6 +443,51 @@ def test_exact_best_of_is_the_old_exact_stage(k, rule, frame2):
                          & (ck[0] < FLT_MAX)).any())
         assert bool((ck == FLT_MAX).any()) and bool((ck < FLT_MAX).any())
     assert all(torch.equal(g, v) for g, v in zip(got, want))
+
+
+@pytest.mark.parametrize("case", ARB_CASES)
+@pytest.mark.parametrize("hw", [(20, 28), (17, 40)])
+def test_arbitration_is_the_old_photometric_arbitrate(case, hw):
+    """``_photometric_arbitrate`` on CPU tensors (the candidate fields,
+    then ``arbitrate_holes_auto``'s plain version) returns exactly what it
+    returned before kernel F's arbitration rule: K = 5 and K = 4,
+    candidates not found, targets outside frame 2, rounding ties, an
+    all-hole field, and a hole whose least cost equals the threshold,
+    which keeps the fill."""
+    h, w = hw
+    args, at = _arbitration_case(case, h, w, seed=sum(hw) + len(case))
+    tx, ty, ftx, fty, cands, packs, cost_cfg, thresh, orig = args
+    before = cuda_exact.KERNEL.launches
+    got = occlusion._photometric_arbitrate(*args)
+    assert cuda_exact.KERNEL.launches == before
+    want = _old_photometric_arbitrate(*args)
+    assert all(torch.equal(g, v) for g, v in zip(got, want))
+    # the case holds what it is meant to
+    cgxs, cgys, masks = occlusion.arbitration_candidates(tx, cands, orig)
+    assert cgxs.shape[0] == (4 if case == "K=4" else 5)
+    hole = (tx < 0) | (ty < 0)
+    took = hole & ((got[0] != ftx) | (got[1] != fty))
+    if case == "all holes":
+        assert bool(hole.all()) and not bool(masks.any())
+        assert not bool(took.any())
+        return
+    costs = _arbitration_costs(*packs, cgxs, cgys, masks, cost_cfg)
+    unmasked = _arbitration_costs(*packs, cgxs, cgys,
+                                  torch.ones_like(masks), cost_cfg)
+    # a candidate not found that would have won, and a target outside
+    # frame 2 whose flag is set
+    assert bool((hole & ~masks[0] & (unmasked[0] < thresh)).any())
+    ys, xs = grid(h, w, tx.device)
+    outside = (xs[None] + cgxs < 0)[1] & masks[1]
+    assert bool(outside.any()) and bool((costs[1][outside] == FLT_MAX).all())
+    assert bool(took.any())
+    if at is not None:
+        k = int(torch.argmin(costs[:, at[0], at[1]]))
+        assert float(costs[k, at[0], at[1]]) == thresh
+        assert (int(got[0][at]), int(got[1][at])) == (int(ftx[at]),
+                                                        int(fty[at]))
+        assert (int(xs[at] + cgxs[k][at]), int(ys[at] + cgys[k][at])) != (
+            int(ftx[at]), int(fty[at]))
 
 
 def test_census_lut_gives_ad_census_bits():
@@ -465,6 +643,53 @@ def test_exact_args_checks_reject_what_kernel_f_does_not_take(name):
         check(*args, cfg)
 
 
+def _arbitrate_bad_args(name):
+    """Kernel F's arbitration arguments with one fault: (arguments,
+    config, match)."""
+    (_, p1), (_, p2) = _packs(8, 12)
+    tx, ty, _ = _wmf_inputs(8, 12)
+    cgx, cgy = tx.repeat(5, 1, 1), ty.repeat(5, 1, 1)
+    masks = cgx >= 0
+    cur = fill = (tx, ty)
+    wide = dataclasses.replace(CFG.cost, patch_stride=1)    # 361 taps
+    return {
+        "uint8 flags": ((p1, p2, cgx, cgy, masks.to(torch.uint8), cur,
+                         fill), CFG.cost, "bool"),
+        "flags' shape": ((p1, p2, cgx, cgy, masks[:4], cur, fill),
+                         CFG.cost, "shape"),
+        "int64 targets": ((p1, p2, cgx, cgy, masks, (tx.long(), ty), fill),
+                          CFG.cost, "int32"),
+        "fill's shape": ((p1, p2, cgx, cgy, masks, cur, (tx[:4], ty)),
+                         CFG.cost, "shape"),
+        "float64 pack": ((p1.double(), p2, cgx, cgy, masks, cur, fill),
+                         CFG.cost, "float32"),
+        "(H, W) offsets": ((p1, p2, tx, ty, masks, cur, fill), CFG.cost,
+                           r"\(K, H, W\)"),
+        "33 candidates": ((p1, p2, tx.repeat(33, 1, 1), ty.repeat(33, 1, 1),
+                           (tx >= 0).repeat(33, 1, 1), cur, fill), CFG.cost,
+                          "candidates"),
+        "361 taps": ((p1, p2, cgx, cgy, masks, cur, fill), wide, "taps"),
+    }[name]
+
+
+@pytest.mark.parametrize("name", [
+    "uint8 flags", "flags' shape", "int64 targets", "fill's shape",
+    "float64 pack", "(H, W) offsets", "33 candidates", "361 taps"])
+def test_arbitrate_args_checks_reject_what_kernel_f_does_not_take(name):
+    """``check_arbitrate_args`` passes the arbitration's arguments (K = 4
+    and 5 at the default taps) and raises, naming the fault, on each
+    argument the arbitration rule does not take."""
+    check = cuda_exact.check_arbitrate_args
+    (_, p1), (_, p2) = _packs(8, 12)
+    tx, ty, _ = _wmf_inputs(8, 12)
+    for k in (4, 5):
+        check(p1, p2, tx.repeat(k, 1, 1), ty.repeat(k, 1, 1),
+              (tx >= 0).repeat(k, 1, 1), (tx, ty), (tx, ty), CFG.cost)
+    args, cfg, match_ = _arbitrate_bad_args(name)
+    with pytest.raises(ValueError, match=match_):
+        check(*args, cfg)
+
+
 def test_main_path_hands_kernels_arguments_they_take(monkeypatch):
     """Run the slice on the CPU with each dispatcher wrapped in its
     kernel's argument check: every call the kernels would get passes."""
@@ -565,13 +790,16 @@ def test_patchmatch_path_hands_kernel_e_arguments_it_takes(monkeypatch):
                                           ("upstream", 0)])
 def test_dense_path_hands_kernel_f_arguments_it_takes(monkeypatch, config,
                                                       calls):
-    """``compute_flow`` on the CPU with kernel F's dispatcher wrapped in
-    its argument check: under ``DEFAULT_CONFIG`` every call passes, 8 a
-    pair (each direction: the incumbent's score, the 8-ring, one step-2
-    propagation round of 4, one median round at equality); the
-    PatchMatch engine and ``UPSTREAM_CONFIG`` never call it."""
-    seen = []
+    """``compute_flow`` on the CPU with kernel F's dispatchers wrapped in
+    their argument checks: under ``DEFAULT_CONFIG`` every call passes, 8
+    of the exact stage a pair (each direction: the incumbent's score, the
+    8-ring, one step-2 propagation round of 4, one median round at
+    equality) and one of the arbitration (K = 5, the default taps and
+    threshold); the PatchMatch engine calls the arbitration alone, and
+    ``UPSTREAM_CONFIG`` (the legacy occlusion order) neither."""
+    seen, arbitrated = [], []
     orig = cuda_exact.exact_best_of_auto
+    orig_arb = cuda_exact.arbitrate_holes_auto
 
     def checked(p1, p2, cgxs, cgys, cur, cfg, strict=True):
         cuda_exact.check_exact_args(p1, p2, cgxs, cgys, cur, cfg)
@@ -579,7 +807,15 @@ def test_dense_path_hands_kernel_f_arguments_it_takes(monkeypatch, config,
         seen.append((cgxs.shape[0], cur is None, strict))
         return orig(p1, p2, cgxs, cgys, cur, cfg, strict)
 
+    def checked_arb(p1, p2, cgxs, cgys, masks, cur, fill, cfg, thresh):
+        cuda_exact.check_arbitrate_args(p1, p2, cgxs, cgys, masks, cur, fill,
+                                        cfg)
+        assert cfg == CFG.cost
+        arbitrated.append((cgxs.shape[0], thresh))
+        return orig_arb(p1, p2, cgxs, cgys, masks, cur, fill, cfg, thresh)
+
     monkeypatch.setattr(cuda_exact, "exact_best_of_auto", checked)
+    monkeypatch.setattr(cuda_exact, "arbitrate_holes_auto", checked_arb)
     cfg = {"default": CFG,
            "patchmatch": dataclasses.replace(CFG, match_engine="patchmatch"),
            "upstream": UPSTREAM_CONFIG}[config]
@@ -591,6 +827,11 @@ def test_dense_path_hands_kernel_f_arguments_it_takes(monkeypatch, config,
     if calls:
         assert seen == [(1, True, True), (8, False, True), (4, False, True),
                         (1, False, False)] * 2
+    # the fill-first chain's arbitration: once a pair, but not in the
+    # legacy occlusion order
+    arbitrations = 0 if config == "upstream" else 1
+    assert arbitrated == [(5, CFG.refine.fill_photometric_thresh)] * (
+        arbitrations)
 
 
 def test_plane_and_match_paths_hand_kernels_arguments_they_take(
@@ -889,6 +1130,12 @@ def test_kernel_f_matches_plain(cuda, hw, k, rule):
     cpu = (p1, p2, cgx, cgy, cur)
     card = [t.to(cuda) for t in cpu[:4]] + [
         None if cur is None else tuple(t.to(cuda) for t in cur)]
+    # the arbitration's instantiation launched first on the same frames:
+    # the matcher's rules are unmoved by it
+    p1c, p2c, cgxc, cgyc = card[:4]
+    cuda_exact.arbitrate_holes_cuda(p1c, p2c, cgxc, cgyc, cgxc >= 0,
+                                    (cgxc[0], cgyc[0]), (cgxc[0], cgyc[0]),
+                                    EXACT_CFG, 0.6)
     n = cuda_exact.KERNEL.launches
     got = cuda_exact.exact_best_of_auto(*card, EXACT_CFG, strict)
     assert cuda_exact.KERNEL.launches == n + 1
@@ -897,6 +1144,57 @@ def test_kernel_f_matches_plain(cuda, hw, k, rule):
     for g, c, v in zip(got, on_card, on_cpu):
         assert g.device == cuda
         assert torch.equal(g, c) and torch.equal(g.cpu(), v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ARB_CASES)
+@pytest.mark.parametrize("hw", [(135, 240), (120, 160)])
+def test_kernel_f_arbitration_matches_plain(cuda, hw, case):
+    """Kernel F's arbitration rule on the card, one launch a call,
+    ``torch.equal`` to ``arbitrate_holes`` on the card and on the CPU at
+    the coarse levels of 1080p and 640x480, on ``_arbitration_case``'s
+    fields (K = 5 and 4, candidates not found, targets outside frame 2,
+    an all-hole field, a least cost at the threshold)."""
+    h, w = hw
+    args, at = _arbitration_case(case, h, w, seed=h + len(case))
+    tx, ty, ftx, fty, cands, packs, cost_cfg, thresh, orig = args
+    cgxs, cgys, masks = occlusion.arbitration_candidates(tx, cands, orig)
+    cpu = (*packs, cgxs, cgys, masks, (tx, ty), (ftx, fty))
+    card = [t.to(cuda) for t in cpu[:5]] + [
+        tuple(t.to(cuda) for t in pair) for pair in cpu[5:]]
+    n = cuda_exact.KERNEL.launches
+    got = cuda_exact.arbitrate_holes_auto(*card, cost_cfg, thresh)
+    assert cuda_exact.KERNEL.launches == n + 1
+    on_card = occlusion.arbitrate_holes(*card, cost_cfg, thresh)
+    on_cpu = occlusion.arbitrate_holes(*cpu, cost_cfg, thresh)
+    for g, c, v in zip(got, on_card, on_cpu):
+        assert g.device == cuda
+        assert torch.equal(g, c) and torch.equal(g.cpu(), v)
+    if at is not None:
+        assert (int(got[0][at]), int(got[1][at])) == (int(ftx[at]),
+                                                        int(fty[at]))
+
+
+@pytest.mark.gpu
+def test_kernel_f_occlusion_chain_on_the_card_matches_the_cpu(cuda):
+    """The fill-first chain (``coarse_occlusion_reconstruct``) at a
+    135x240 level on the card, kernel F launched once (the arbitration),
+    gives the CPU's targets."""
+    args, _ = _arbitration_case("K=5", 135, 240, seed=24)
+    tx, ty, _, _, _, packs, cost_cfg, _, orig = args
+    (img, _), _ = _packs(135, 240, seed=24)
+    cpu = (tx, ty, img, packs, orig)
+    card = [t.to(cuda) for t in cpu[:3]] + [
+        tuple(t.to(cuda) for t in pair) for pair in cpu[3:]]
+    n = cuda_exact.KERNEL.launches
+    got = occlusion.coarse_occlusion_reconstruct(
+        *card[:3], CFG.refine, packs=card[3], cost_cfg=cost_cfg,
+        orig=card[4])
+    assert cuda_exact.KERNEL.launches == n + 1
+    want = occlusion.coarse_occlusion_reconstruct(
+        *cpu[:3], CFG.refine, packs=cpu[3], cost_cfg=cost_cfg, orig=cpu[4])
+    for g, v in zip(got, want):
+        assert torch.equal(g.cpu(), v)
 
 
 @pytest.mark.gpu
