@@ -211,6 +211,7 @@ import torch
 
 from eppm_tpu_torch.testing import shifted_pair, texture
 from flowbench.gather_work import TAP_OPS
+from flowbench.plane_work import kernel_a_work
 from flowbench.stats import (COST_DR1_OPS, COST_SUM_OPS, COST_TERM_OPS, PEAKS,
                              bound_ms)
 
@@ -365,19 +366,13 @@ def pair_count(known: torch.Tensor, r: int) -> int:
     return n
 
 
-def term_pixels(plan, taps, h: int, w: int, dev) -> int:
-    """The padded pixels u = p + d at which some (candidate, table, tap)
-    of the kernel-A ``plan`` reads each map, summed over the maps: the
-    AD + census terms that the cost needs."""
-    r = max(max(abs(dy), abs(dx)) for dy, dx in taps)
-    tap = np.broadcast_to(np.arange(len(taps)), plan.map_of.shape)
-    reads = np.unique(np.stack([plan.map_of.ravel(), tap.ravel()], 1), axis=0)
-    need = torch.zeros((len(plan.maps), h + 2 * r, w + 2 * r),
-                       dtype=torch.bool, device=dev)
-    for m, t in reads:
-        dy, dx = taps[t]
-        need[m, r + dy : r + dy + h, r + dx : r + dx + w] = True
-    return int(need.sum())
+def kernel_a_bound(h: int, w: int, cands, taps, tables, n_frames: int = 1):
+    """(bound_ms, bound_by) of one launch of kernel A at ``h`` x ``w``:
+    the benchmark's count (``flowbench.plane_work.kernel_a_work``: the
+    terms over each map's padded frame, the frame-1 range distances, the
+    weighted sums a table and the least over the tables; the packs read
+    once and a float32 cost a candidate written)."""
+    return bound_ms(*kernel_a_work(h, w, cands, taps, tables, n_frames))
 
 
 def phase_versions() -> str:
@@ -602,14 +597,10 @@ def phase_kernels(dev) -> dict:
         n_maps = len(plan.maps)
         # packs and frames read as float4, a float32 cost per candidate;
         # the terms pass writes a float32 map per shift
-        frame_bytes = h * w * 16 * (1 + (1 if frames.dim() == 3
-                                         else frames.shape[0]))
+        n_frames = 1 if frames.dim() == 3 else frames.shape[0]
+        frame_bytes = h * w * 16 * (1 + n_frames)
         sums = len(cands) * h * w * len(taps) * len(tables)
-        bms, by = bound_ms(sums * COST_SUM_OPS
-                           + h * w * len(taps) * COST_DR1_OPS
-                           + term_pixels(plan, taps, h, w, p1.device)
-                           * COST_TERM_OPS,
-                           frame_bytes + len(cands) * h * w * 4)
+        bms, by = kernel_a_bound(h, w, cands, taps, tables, n_frames)
         one_pass_ms = bound_ms(sums * COST_TAP_OPS, 0)[0]
         tbms, tby = bound_ms(n_maps * hp * wp * COST_TERM_OPS,
                              frame_bytes + n_maps * hp * wp * 4)

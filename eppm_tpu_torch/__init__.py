@@ -19,6 +19,7 @@ from .config import (
     EPPMConfig,
     MatchConfig,
     PatchMatchConfig,
+    PLANES_CONFIG,
     PyramidConfig,
     RefineConfig,
     UPSTREAM_CONFIG,

@@ -616,7 +616,7 @@ class EPPMConfig:
     # (mean 0.350 vs 0.349; Grove warp error 7.695 vs 7.713/255) at 4x
     # less arithmetic in the dominant fine-level stage — the +-1
     # re-search is too local for the affine hypotheses to change the
-    # argmin.  Set True to restore the reference's exact search space.
+    # argmin.  Set True to score the reference's 4 hypotheses on this grid.
     dense_pass1_planes: bool = False
 
 
@@ -659,6 +659,17 @@ UPSTREAM_CONFIG = dataclasses.replace(
     match_engine="patchmatch",
     refine_impl="gather",
 )
+
+# The reference's plane hypotheses on the port's grids and dense engine
+# (Bao, Yang, Jin, CVPR 2014: linchaobao/EPPM re-searches its fine levels
+# over fronto-parallel plus 3 fixed slant hypotheses, the least of the 4
+# kept, bao_pmflow_kernel.cu:319-513, on its 100-tap grid by the gathered
+# refine, as UPSTREAM_CONFIG runs it).  Every dense refine pass scores its
+# candidates over the 4 frame-2 tap tables (kernel A's plane mode): pass 1
+# on the radius-9 stride-3 grid of 49 taps, pass 2 on the radius-8 stride-4
+# grid of 25.  Everything else is DEFAULT_CONFIG.
+PLANES_CONFIG = dataclasses.replace(
+    DEFAULT_CONFIG, dense_pass1_planes=True, dense_pass2_planes=True)
 
 
 def config_fingerprint(cfg: EPPMConfig = DEFAULT_CONFIG) -> str:

@@ -19,8 +19,8 @@ import torch
 
 from eppm_tpu_torch import pipeline
 from eppm_tpu_torch.config import DEFAULT_CONFIG as CFG
-from eppm_tpu_torch.config import (FLT_MAX, INVALID_LOCATION, UNKNOWN_FLOW,
-                                   UPSTREAM_CONFIG, RefineConfig)
+from eppm_tpu_torch.config import (FLT_MAX, INVALID_LOCATION, PLANES_CONFIG,
+                                   UNKNOWN_FLOW, UPSTREAM_CONFIG, RefineConfig)
 from eppm_tpu_torch.ops import _build, cuda_cost, cuda_exact, cuda_match
 from eppm_tpu_torch.ops import cuda_patchmatch, cuda_smooth, cuda_wmf, match
 from eppm_tpu_torch.ops import occlusion
@@ -948,11 +948,38 @@ def test_kernel_a_multiwarp_matches_plain(cuda):
     assert torch.equal(got, want)
 
 
+# Kernel A's costs lie on a grid of 2^-17 (``ops/dense.py``); the plane
+# mode sums its fronto-parallel table in another of XLA's per-site forms
+# than the fronto mode does, so its least over the tables may exceed the
+# fronto mode's cost by one step of that grid where the two sums round
+# to neighbouring steps (4 of the 31,500 costs below under ``pass2``).
+GRID_STEP = 2.0 ** -17
+
+PLANE_COSTS = {"cost": CFG.cost, "pass2": CFG.pass2_cost,
+               "stride2": dataclasses.replace(CFG.cost, patch_stride=2)}
+
+
+@pytest.mark.parametrize("cfg_name", ["cost", "pass2", "stride2"])
+def test_plane_mode_is_within_a_grid_step_of_the_fronto_mode(cfg_name):
+    """The plain version on the CPU: both modes' costs lie on the 2^-17
+    grid, and the least over the 4 plane tables never exceeds the fronto
+    mode's cost by more than one step of it."""
+    cfg = PLANE_COSTS[cfg_name]
+    (_, p1), (_, p2) = _packs(50, 70)
+    cands = center_out_offsets(1)
+    got = cuda_cost.residual_costs(p1, p2, cands, cfg, use_planes=True)
+    fronto = cuda_cost.residual_costs(p1, p2, cands, cfg)
+    for c in (got, fronto):
+        assert torch.equal(c / GRID_STEP, torch.round(c / GRID_STEP))
+    assert bool((got <= fronto + GRID_STEP).all())
+    # the slanted tables win somewhere: the least is not table 0 alone
+    assert bool((got < fronto).any())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("cfg_name", ["cost", "pass2", "stride2"])
 def test_kernel_a_planes_matches_plain(cuda, cfg_name):
-    cfg = {"cost": CFG.cost, "pass2": CFG.pass2_cost,
-           "stride2": dataclasses.replace(CFG.cost, patch_stride=2)}[cfg_name]
+    cfg = PLANE_COSTS[cfg_name]
     (_, p1), (_, p2) = _packs(50, 70, device=cuda)
     cands = center_out_offsets(1)
     n = cuda_cost.PLANES.launches
@@ -960,11 +987,35 @@ def test_kernel_a_planes_matches_plain(cuda, cfg_name):
     assert cuda_cost.PLANES.launches == n + 1
     want = cuda_cost.residual_costs(p1, p2, cands, cfg, use_planes=True)
     assert torch.equal(got, want)
-    # the plane tables of one launch stay in place for the next
+    # the plain version on the CPU gives the card's costs bit for bit
+    assert torch.equal(got.cpu(), cuda_cost.residual_costs(
+        p1.cpu(), p2.cpu(), cands, cfg, use_planes=True))
+    # the plane tables of one launch stay in place for the next, after a
+    # fronto launch with tables of its own; the least over the plane
+    # tables exceeds the fronto cost by at most one grid step
     fronto = cuda_cost.residual_costs_auto(p1, p2, cands, cfg)
     again = cuda_cost.residual_costs_auto(p1, p2, cands, cfg, use_planes=True)
     torch.cuda.synchronize()
-    assert torch.equal(again, got) and bool((got <= fronto).all())
+    assert torch.equal(again, got)
+    assert bool((got <= fronto + GRID_STEP).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("planes", [True, False], ids=["planes", "default"])
+def test_plane_launches_a_replay(cuda, planes):
+    """``cuda_cost.PLANES.launches`` over one replay of a pair's graph:
+    2 a fine level under ``PLANES_CONFIG`` (both refine passes), none
+    under ``DEFAULT_CONFIG``."""
+    cfg = PLANES_CONFIG if planes else CFG
+    h, w = 48, 64
+    (img1, _), (img2, _) = _packs(h, w, device=cuda)
+    pipeline.compute_flow_jit(img1, img2, cfg=cfg)
+    n = cuda_cost.PLANES.launches
+    pipeline.compute_flow_jit(img1, img2, cfg=cfg)
+    torch.cuda.synchronize()
+    fine = len(cfg.pyramid.level_dims(h, w)) - 1
+    assert fine == 2
+    assert cuda_cost.PLANES.launches - n == (2 * fine if planes else 0)
 
 
 @pytest.mark.gpu
